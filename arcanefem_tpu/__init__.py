@@ -1,6 +1,6 @@
-"""arcanefem_tpu — TPU-native finite-element framework.
+"""arcanefem_tpu — JAX finite-element framework for the GPU.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of ArcaneFEM
+A ground-up JAX/XLA rebuild of the capabilities of ArcaneFEM
 (reference: toutane/arcanefem): unstructured-mesh FEM solvers for
 Poisson/Laplace/Fourier/heat/acoustics/electrostatics/aerodynamics/
 bilaplacian/elasticity/elastodynamics/soildynamics/passmo, with

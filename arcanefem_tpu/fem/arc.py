@@ -229,7 +229,8 @@ def parse_solver(fem: ET.Element) -> SolverOptions:
         # aggregation AMG; poly and the triangular-solve/approximate-
         # inverse kinds (ainv/ic/ilu/ilup) onto the Chebyshev polynomial
         # preconditioner (solver/poly.py), the standard accelerator
-        # substitute since sequential triangular solves don't map to TPU
+        # substitute since sequential triangular solves map poorly onto
+        # wide data-parallel devices
         opts.preconditioner = {
             "diagonal": "jacobi", "amg": "amg", "none": "none",
             "poly": "poly", "ainv": "poly", "ic": "poly",

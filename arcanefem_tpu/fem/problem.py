@@ -1,6 +1,6 @@
 """FemProblem — shared per-module infrastructure.
 
-This is the TPU counterpart of what every reference module repeats:
+This is the JAX counterpart of what every reference module repeats:
 FemDoFsOnNodes numbering (femutils/FemDoFsOnNodes.cc:71-128: dof uid =
 node_uid*ndof+i), sparsity setup (BSRFormat::computeSparsity), RHS builders
 and boundary-condition application (femutils/ArcaneFemFunctions.h:824-1222

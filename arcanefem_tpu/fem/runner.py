@@ -97,7 +97,6 @@ def run_case(
     dtype=None,
     mesh_root: str | None = None,
     rcm: bool = False,
-    spmv: str | None = None,
     verbose: bool = False,
     output_dir: str | None = None,
     **kw,
@@ -105,10 +104,8 @@ def run_case(
     """Load an .arc case, read its mesh, dispatch to the registered model.
 
     rcm: bandwidth-reducing node renumbering (utils/ordering.py) — golden
-    validation is uid-keyed, so results are invariant; required for the
-    Pallas window SpMV on larger meshes.
-    spmv: override the SpMV backend ("pallas" enables the TPU window
-    kernel, sparse/pallas_spmv.py; silently falls back off-TPU).
+    validation is uid-keyed, so results are invariant; keeps the SpMV's
+    gathers local on larger meshes.
     verbose: print `[ArcaneFem-Timer]` phase lines (the reference's
     per-phase wall-clock instrumentation, modules/poisson/FemModule.cc:28-39).
     output_dir: write the case's `<arcane-post-processing>` variables
@@ -117,8 +114,6 @@ def run_case(
     import numpy as np
 
     case = load_case(path, mesh_root=mesh_root)
-    if spmv is not None:
-        case.solver.spmv = spmv
     key = (case.codename or "").lower()
     if key not in _REGISTRY:
         # import model modules lazily so registration side-effects run

@@ -1,7 +1,7 @@
 """Frozen boundary conditions for transient loops.
 
 The reference rebuilds matrix + BCs every time step (elastodynamics
-FemModule.cc:144-158).  TPU-first inversion: freeze the BC-modified matrix
+FemModule.cc:144-158).  Device-first inversion: freeze the BC-modified matrix
 once, and give each step's freshly built RHS the same treatment:
 
 * penalty rows are overridden with P·g,

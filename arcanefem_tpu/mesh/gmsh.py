@@ -1,6 +1,6 @@
 """Gmsh ``.msh`` reader (MSH 4.1 binary/ASCII and legacy 2.2 ASCII).
 
-TPU-native counterpart of the mesh-ingestion service the reference gets from
+JAX counterpart of the mesh-ingestion service the reference gets from
 the Arcane framework (L0 in SURVEY.md §1; the reference's meshes live in
 ``meshes/msh/*.msh`` and are Gmsh 4.1 files with physical groups naming
 boundary surfaces / node sets used by the boundary-condition services,

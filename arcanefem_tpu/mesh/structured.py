@@ -1,13 +1,12 @@
 """Structured-box FEM fast path: stencil assembly into a DIA matrix.
 
-The TPU-native counterpart of the reference's benchmark pipeline (poisson 3D
-CUDA BSR assembly, femutils/BSRFormat.h:786-932 + modules/testlab
+The structured counterpart of the reference's benchmark pipeline (poisson
+3D CUDA BSR assembly, femutils/BSRFormat.h:786-932 + modules/testlab
 benchmarking) for structured tetrahedral boxes: because the node graph of a
 Kuhn-decomposed hex grid has a *fixed set of 15 index offsets*, both
 assembly and SpMV can be written entirely with static slices, rolls and
-elementwise math — no gather, no scatter, no atomics — which is the shape
-XLA/TPU executes at HBM bandwidth (~700 GB/s measured on v5e, vs
-~0.11 Gelem/s for XLA scatter/gather).
+elementwise math — no gather, no scatter, no atomics — which XLA fuses
+into bandwidth-bound streaming passes.
 
 Geometry is general (arbitrary node coordinates on the structured topology,
 e.g. jittered/graded grids): element matrices are computed per tet from real
@@ -99,43 +98,33 @@ class StructuredBox:
             di : di + self.nx, dj : dj + self.ny, dk : dk + self.nz
         ].reshape(-1, 3)
 
-    def assemble_stiffness(self, coords3d: jnp.ndarray, backend: str = "auto") -> DiaMatrix:
+    def assemble_stiffness(self, coords3d: jnp.ndarray) -> DiaMatrix:
         """Stencil assembly: batched tet kernels + static slice-adds.
 
         Mirrors the math of BSRFormat::assembleBilinear(computeElementMatrix
         Tetra4) with the scatter replaced by 96 static slice-adds grouped by
         the 15 stencil offsets.
-
-        backend: "auto" uses the Pallas plane-streaming kernel on TPU/f32
-        (mesh/pallas_stencil.py, ~6x faster — XLA materializes every padded
-        term in HBM), the XLA slice-add path otherwise.
         """
-        if backend == "auto":
-            import jax
-
-            if (
-                jax.devices()[0].platform == "tpu"
-                and coords3d.dtype == jnp.float32
-            ):
-                from .pallas_stencil import assemble_stiffness_pallas
-
-                return assemble_stiffness_pallas(self, coords3d)
-        from ..ops.geometry import tetra4_gradients, tetra4_volume
+        from ..ops.geometry import tetra4_gradients_at_origin, tetra4_volume
 
         nx, ny, nz = self.nx, self.ny, self.nz
         dtype = coords3d.dtype
         shp = (nx + 1, ny + 1, nz + 1)
         bands = {d: jnp.zeros(shp, dtype) for d in self.offsets}
 
+        # every tet of a hex has hex corner 0 as its corner 0: translate the
+        # hex's corners to it once, so the cofactors keep their f32 bits
+        x0 = self._corner_xyz(coords3d, 0)
+        rel = [jnp.zeros_like(x0)] + [
+            self._corner_xyz(coords3d, c) - x0 for c in range(1, 8)
+        ]
         for tet in _TETS:
-            xyz = jnp.stack(
-                [self._corner_xyz(coords3d, c) for c in tet], axis=1
-            )  # (nhex, 4, 3)
+            xyz = jnp.stack([rel[c] for c in tet], axis=1)  # (nhex, 4, 3)
             # per-entry contributions from gradients directly: never
             # materialize the (nhex, 4, 4) element tensor — each (a, b)
             # entry is one fused elementwise pass into its band slice
             vol = tetra4_volume(xyz)
-            gx, gy, gz = tetra4_gradients(xyz)  # (nhex, 4) each
+            gx, gy, gz = tetra4_gradients_at_origin(xyz)  # (nhex, 4) each
             for a, ca in enumerate(tet):
                 di, dj, dk = _HEX_CORNERS[ca]
                 la = self._lin(_HEX_CORNERS[ca])

@@ -1,6 +1,6 @@
 """Acoustics (Helmholtz): (k/c)²u + Δu = 0 weak form.
 
-TPU-native rebuild of reference modules/acoustics: element matrix
+JAX rebuild of reference modules/acoustics: element matrix
 −∫∇u·∇v + kc2·∫uv (FemModule.cc:143-155), Neumann forcing on the radiating
 surface.  The system is symmetric indefinite: the dense backend (the
 reference's SequentialBasicLinearSystem choice in sub.arc) or BiCGStab.

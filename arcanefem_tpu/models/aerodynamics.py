@@ -1,6 +1,6 @@
 """Aerodynamics: potential flow Δψ = 0 around an airfoil.
 
-TPU-native rebuild of reference modules/aerodynamics: Laplace operator,
+JAX rebuild of reference modules/aerodynamics: Laplace operator,
 "farfield" BC that pins boundary nodes at u = y − angle·x
 (FemModule.cc:200-210), Dirichlet 0 on the airfoil, and the derived
 per-cell ψ = −(u_x² + u_y²) post-processing (FemModule.cc:129-141).

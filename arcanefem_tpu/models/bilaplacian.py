@@ -1,6 +1,6 @@
 """Bilaplacian via the mixed two-field formulation.
 
-TPU-native rebuild of reference modules/bilaplacian: 2 DoFs per node
+JAX rebuild of reference modules/bilaplacian: 2 DoFs per node
 (u1, u2), the 6×6 element matrix built there from B-matrix products
 (FemModule.cc:398-545) reduces to the block form
 

@@ -1,6 +1,6 @@
 """Linear elasticity: K u = f with traction/bodyforce/vector Dirichlet.
 
-TPU-native rebuild of reference modules/elasticity (plane strain, 2 DoF per
+JAX rebuild of reference modules/elasticity (plane strain, 2 DoF per
 node, FemModule.cc:100-117): λ, 2μ from E, ν (FemModule.cc:130-134), block-2
 element matrices from the B^T D B form (FemModule.h:112-143 builds them from
 outer products), bodyforce + traction RHS (FemModule.cc:221-272), all three

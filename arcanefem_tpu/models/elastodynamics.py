@@ -1,13 +1,13 @@
 """Transient elastodynamics: ρü + C(u̇) + K(u) = f, Newmark-β / Generalized-α.
 
-TPU-native rebuild of reference modules/elastodynamics: the c0..c10
+JAX rebuild of reference modules/elastodynamics: the c0..c10
 coefficient scheme (FemModule.cc:251-296) with Rayleigh damping (etam, etak),
 consistent-mass + divdiv/epseps operators, traction BCs (constant or
 CaseTable time series, FemModule.cc:305-320,872-905), bodyforce, penalty /
 row / row-column Dirichlet, and the Newmark update of (U, V, A)
 (FemModule.cc:429-459).
 
-TPU-first inversion: the reference reassembles the full matrix every time
+Device-first inversion: the reference reassembles the full matrix every time
 step (FemModule.cc:144-158); here the three unit operators M (mass),
 D (divdiv), E (epseps) are assembled ONCE over the frozen sparsity, the LHS
 is the linear combination c0·M + c1·D + c2·E, and each step only rebuilds

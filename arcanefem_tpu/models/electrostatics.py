@@ -1,6 +1,6 @@
 """Electrostatics: −Δφ = ρ/ε, then E = −∇φ per cell.
 
-TPU-native rebuild of reference modules/electrostatics: Poisson solve for
+JAX rebuild of reference modules/electrostatics: Poisson solve for
 the potential with source qdot = −ρ/ε (FemModule.cc:134-135), shared BC
 service, then the derived cell-wise electric field E = −∇φ
 (FemModule.cc:160-165).

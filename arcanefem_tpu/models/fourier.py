@@ -1,6 +1,6 @@
 """Fourier steady heat conduction: −∇·(λ∇T) = qdot.
 
-TPU-native rebuild of reference modules/fourier: per-region material λ
+JAX rebuild of reference modules/fourier: per-region material λ
 (`<material-property><volume>..<lambda>`, FemModule.cc:133-148), constant
 source qdot, Dirichlet/Neumann via the shared BC service, and manufactured
 solutions.  The reference wires manufactured functions through C# user

@@ -1,12 +1,12 @@
 """Transient heat conduction: ∂T/∂t − λΔT = qdot, implicit Euler.
 
-TPU-native rebuild of reference modules/heat: element matrix λS + M/dt
+JAX rebuild of reference modules/heat: element matrix λS + M/dt
 (FemModule.cc:679-770), convection boundary matrix h·(edge mass)
 (FemModule.cc:629-673), per-step RHS with *lumped* T_old/dt
 (FemModule.cc:487-493), convection flux h·Text·L/2 and Neumann flux, time
 loop until t ≥ tmax (FemModule.cc:114-119).
 
-TPU-first inversion of the reference's loop: the matrix is assembled and
+Device-first inversion of the reference's loop: the matrix is assembled and
 BC-finalized ONCE (the reference rebuilds it every step); each step only
 rebuilds the RHS and re-runs the jit-cached PCG.
 """

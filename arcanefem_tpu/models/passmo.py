@@ -1,6 +1,6 @@
 """Passmo: general-element transient elastodynamics (the "full FEM" module).
 
-TPU-native rebuild of reference modules/passmo (ElastodynamicModule.cc,
+JAX rebuild of reference modules/passmo (ElastodynamicModule.cc,
 Elastodynamic.axl) at full option-surface depth:
 
 * arbitrary cell types per mesh (tria3/6, quad4/8, tetra4/10, hexa8/20,

@@ -1,6 +1,6 @@
 """Poisson solver: −Δu = f with Dirichlet/Neumann/point BCs.
 
-TPU-native rebuild of reference modules/poisson (FemModule.cc:100-117
+JAX rebuild of reference modules/poisson (FemModule.cc:100-117
 _doStationarySolve): P1 triangles / tetrahedra, element matrix
 area·(∇x⊗∇x + ∇y⊗∇y[+∇z⊗∇z]) (FemModule.h:126-186), constant volume
 source, penalty Dirichlet by default, CG solve.

@@ -1,7 +1,7 @@
 """Soil dynamics: seismic wave propagation with paraxial absorbing
 boundaries and a double-couple source.
 
-TPU-native rebuild of reference modules/soildynamics: Newmark-β scheme with
+JAX rebuild of reference modules/soildynamics: Newmark-β scheme with
 its own c0..c9 set (FemModule.cc:283-301; Generalized-alpha is declared WIP
 and fatals there, :322), paraxial EDGE2 boundary terms with wave speeds
 cp = √((λ+2μ)/ρ), cs = √(μ/ρ) (FemModule.cc:258-272) — LHS edge matrix

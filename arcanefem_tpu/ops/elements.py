@@ -6,7 +6,7 @@ physics parameters) to stacked element matrices ``(nc, npc, npc)`` or
 per-cell ``_computeElementMatrix*`` FixedMatrix kernels.
 
 The arithmetic intensity per element is tiny, so these fuse into the
-assembly segment-sum; XLA keeps everything in registers/VMEM.
+assembly segment-sum; XLA keeps the element arithmetic in registers.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """General boundary-face operations: Gauss geometry on embedded faces,
 outward local frames, and boundary-cell lookup.
 
-TPU-native counterpart of the reference's face-side FEM helpers used by
+JAX counterpart of the reference's face-side FEM helpers used by
 passmo's paraxial/traction machinery:
 
 * surface Gauss integration of face shape functions — the role of

@@ -4,7 +4,7 @@ values, shape derivatives, Jacobian det stored in DoF variables;
 modules/passmo/ElastodynamicModule.cc:188-253 precomputes them once per
 cell and reuses them every time step).
 
-TPU-native shape: instead of DoF-variables on a Gauss "cell family", the
+Device-side shape: instead of DoF-variables on a Gauss "cell family", the
 state is a pytree of batched device arrays per cell bucket —
 (ng, nc, npc, dim) gradients and (ng, nc) w·|detJ| — built ONCE from the
 coordinates and closed over by every assembly/recovery jit.  Matrices and

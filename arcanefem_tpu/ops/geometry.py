@@ -1,6 +1,6 @@
 """Batched element geometry (JAX, fully vectorised over cells).
 
-TPU-native counterpart of the reference's per-cell geometry helpers
+JAX counterpart of the reference's per-cell geometry helpers
 (reference femutils/ArcaneFemFunctions.h:40-432 ``MeshOperation`` and
 :449-816 ``FeOperation2D/3D``; GPU twins in ArcaneFemFunctionsGpu.h).
 Instead of one cell per GPU thread, every function takes the stacked
@@ -8,7 +8,7 @@ vertex coordinates of *all* cells of a bucket, shape ``(nc, npc, 3)``,
 and returns per-cell arrays — XLA fuses the arithmetic into a handful
 of elementwise kernels over HBM-contiguous arrays.
 
-All functions are dtype-polymorphic (f32 on TPU, f64 for CPU validation).
+All functions are dtype-polymorphic (f32 or f64).
 """
 
 from __future__ import annotations
@@ -122,8 +122,20 @@ def tetra4_gradients(
     """P1 tetra shape-function gradients, (nc,4,3) -> 3×(nc,4).
 
     Mirrors computeGradientX/Y/ZTetra4 (ArcaneFemFunctions.h:690-816),
-    including the reference's use of the *unsigned* 6V denominator.
+    including the reference's use of the *unsigned* 6V denominator.  The
+    cofactors are translation-invariant, so they are formed from corners
+    relative to corner 0: products of absolute coordinates would cancel
+    from ~|x|·h down to ~h², losing log2(|x|/h) bits.
     """
+    return tetra4_gradients_at_origin(xyz - xyz[:, :1])
+
+
+def tetra4_gradients_at_origin(
+    xyz: jnp.ndarray,
+) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+    """:func:`tetra4_gradients` of cells already translated so that their
+    corners sit near the origin: callers whose cells share a corner (the
+    six tets of a structured hex) translate once for all of them."""
     v6 = jnp.abs(tetra4_volume6_signed(xyz))[:, None]
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
 

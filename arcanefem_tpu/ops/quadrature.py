@@ -1,6 +1,6 @@
 """Gauss quadrature + isoparametric shape functions for the element zoo.
 
-TPU-native counterpart of the reference's FemShapeMethods + FemGaussQuadrature
+JAX counterpart of the reference's FemShapeMethods + FemGaussQuadrature
 + GaussQuadrature.h tables (femutils/ArcaneFemFunctions.h:1252-2878,
 femutils/GaussQuadrature.h) and the Gauss-point precomputation of
 GaussDoFsOnCells (femutils/GaussDoFsOnCells.h).

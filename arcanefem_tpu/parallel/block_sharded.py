@@ -1,6 +1,6 @@
 """Sharded block (ndof > 1) systems: elasticity under shard_map.
 
-The TPU counterpart of the reference's distributed vector problems:
+The JAX counterpart of the reference's distributed vector problems:
 elasticity assembles ``BSRFormat<2>`` blocks and solves under MPI
 (modules/elasticity/FemModule.cc:146-195, CMakeLists.txt mpirun tests).
 Here the *same node partition* as the scalar path (parallel/partition.py
@@ -197,7 +197,7 @@ def make_elastodynamics_loop(
     step Newmark loop (modules/elastodynamics/FemModule.cc:429+) as ONE
     jitted shard_map program.
 
-    TPU-first inversion mirroring models/elastodynamics: the three unit
+    Device-first inversion mirroring models/elastodynamics: the three unit
     operators M (mass), D (divdiv), E (epseps) are assembled once per shard
     over the frozen sparsity, the LHS is c0·M + c1·D + c2·E with penalty
     Dirichlet written once, and a ``lax.scan`` over ``n_steps`` rebuilds

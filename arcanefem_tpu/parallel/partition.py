@@ -1,6 +1,6 @@
 """Mesh partitioning + per-shard topology (host NumPy, built once per mesh).
 
-TPU-native replacement of the reference's MPI domain decomposition (SURVEY.md
+JAX replacement of the reference's MPI domain decomposition (SURVEY.md
 §2.3): Arcane partitions the mesh at load, each rank owns cells/nodes plus a
 ghost layer, DoF owners mirror node owners (femutils/FemDoFsOnNodes.cc:113-127)
 and results are halo-exchanged with `synchronize()`.

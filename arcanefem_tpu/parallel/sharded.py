@@ -1,6 +1,6 @@
 """shard_map FEM execution: assembly, halo-exchange SpMV, distributed PCG.
 
-The TPU counterpart of the reference's MPI execution model (SURVEY.md §2.3):
+The JAX counterpart of the reference's MPI execution model (SURVEY.md §2.3):
 
 * assembly needs **no communication** — each shard recomputes the element
   matrices of its boundary cells (partition.py builds the overlap), exactly

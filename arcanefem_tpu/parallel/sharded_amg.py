@@ -2,7 +2,7 @@
 
 The Hypre role (reference femutils/HypreDoFLinearSystem.cc:264-303,686-742:
 global numbering + distributed BoomerAMG-preconditioned PCG) rebuilt
-TPU-first over the RCB node partition:
+over the RCB node partition:
 
 * the FINE level — where virtually all V-cycle flops and bandwidth live —
   is sharded: Jacobi smoothing over the shard-assembled ELL rows, residuals
@@ -79,12 +79,10 @@ def build_sharded_amg(sp: ShardedProblem, amg: AMGPrecond) -> ShardedAMG:
     # zero-valued transfer entries keep their (arbitrary) column; route all
     # of them to the dump slot so segment sums stay clean
     pcols0 = np.where(pvals0 != 0.0, pcols0, n1).astype(np.int32)
-    # the replicated inner hierarchy runs INSIDE shard_map: strip the
-    # single-device Pallas operators (window kernels are not legal there;
-    # the inner levels are small enough for the XLA einsum/gather path)
+    # the replicated inner hierarchy runs INSIDE shard_map on every device
     inner = replace(
         amg,
-        mats=tuple(getattr(m, "bell", m) for m in amg.mats[1:]),
+        mats=amg.mats[1:],
         inv_diags=amg.inv_diags[1:],
         pcols=amg.pcols[1:],
         pvals=amg.pvals[1:],
@@ -92,17 +90,11 @@ def build_sharded_amg(sp: ShardedProblem, amg: AMGPrecond) -> ShardedAMG:
         ptvals=amg.ptvals[1:],
         omegas=amg.omegas[1:],
         # keep the per-level meta aligned with the stripped level too: a
-        # chebyshev hierarchy reads rhos[l] inside the inner cycle, and a
-        # supernode l0_binv only matches level-0 shapes
+        # chebyshev hierarchy reads rhos[l] inside the inner cycle
         rhos=amg.rhos[1:] if amg.rhos else (),
         # per-level chebyshev degree tuples shift down with the levels
         cheb_deg=(amg.cheb_deg[1:] or amg.cheb_deg[-1:])
         if isinstance(amg.cheb_deg, (tuple, list)) else amg.cheb_deg,
-        l0_binv=None,
-        p_apply=(),
-        pt_apply=(),
-        # bf16 vmats are window kernels too (with_bf16_vcycle) — strip them
-        vmats=(),
     )
     return ShardedAMG(
         inv_diag0=inv_diag0,
@@ -118,8 +110,7 @@ def build_sharded_amg(sp: ShardedProblem, amg: AMGPrecond) -> ShardedAMG:
 def fine_vcycle(spmv, inv_diag0, pcols0, pvals0, inner: AMGPrecond,
                 n1: int, omega0: float, nu: int, r):
     """Sharded fine level (smooth/restrict/prolong) around the replicated
-    inner hierarchy — shared with the window-kernel step
-    (sharded_window.make_window_amg_step)."""
+    inner hierarchy."""
     om = jnp.asarray(omega0, r.dtype)
     x = om * inv_diag0 * r
     for _ in range(nu - 1):

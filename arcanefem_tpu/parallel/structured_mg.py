@@ -222,7 +222,8 @@ def make_structured_mg_step(
         x0 = jnp.where(mask0 > 0.5, gvals, 0.0).astype(dtype)
 
         def pdot(a, b):
-            return jax.lax.psum(jnp.vdot(a, b), AXIS)
+            return jax.lax.psum(
+                jnp.vdot(a, b), AXIS)
 
         r0 = rhs - spmv(0, x0)
         z0 = M_apply(r0)

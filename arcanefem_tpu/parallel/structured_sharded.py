@@ -216,7 +216,8 @@ def make_structured_step(plan: SlabPlan, mesh: jax.sharding.Mesh,
             return _halo_spmv(box, px, bands, x, D)
 
         def pdot(a, b):
-            return jax.lax.psum(jnp.vdot(a, b), AXIS)
+            return jax.lax.psum(
+                jnp.vdot(a, b), AXIS)
 
         r0 = rhs - spmv(x0)
         z0 = inv * r0

@@ -9,9 +9,11 @@ products are single `jnp.vdot`s that become `psum`s under shard_map.
 The matrix and preconditioner are JAX pytrees (values traced, topology
 static), so repeated solves with the same mesh hit the jit cache.
 
-Precision: on TPU the natural dtype is f32; to reach tight residuals the
-dot products can use compensated (double-float) accumulation — see
-``precise_dot``.  Tests run f64 on CPU.
+Precision: solves run in f32 or f64 (the GPU has native fp64).  In f32 the
+dot products can use compensated (double-float) accumulation to reach
+tight residuals — see ``precise_dot``.  Matrix contractions run at
+the HIGHEST matmul precision that ``utils/device.setup`` pins.  Tests run
+f64 on CPU.
 """
 
 from __future__ import annotations
@@ -113,8 +115,8 @@ def _two_prod(a: Array, b: Array) -> tuple[Array, Array]:
 def precise_dot(a: Array, b: Array) -> Array:
     """Ogita-Rump-Oishi dot2: f32 inputs, near-f64-quality reduction.
 
-    The mixed-precision trick that lets f32 CG reach tight residuals on TPU
-    where f64 is emulated (SURVEY.md §7 hard part 2).
+    The mixed-precision trick that lets f32 CG reach tight residuals
+    without f64 vectors (SURVEY.md §7 hard part 2).
     """
     p, e = _two_prod(a, b)
     s, comp = _two_sum(jnp.sum(p), jnp.sum(e))
@@ -141,10 +143,8 @@ def pcg_chunked(
 
     Amortizes while_loop trip overhead by running `chunk` body steps per
     tolerance check, at the price of up to chunk−1 extra iterations past
-    convergence.  Measured at 11M DoF on v5e: −1.7 ms/iter but the wasted
-    tail iterations outweigh it at ~13-iteration solves (bench 0.268 →
-    0.293 s with chunk=4), so the plain `pcg` stays the default; chunking
-    pays off only for slow-converging systems (hundreds of iterations).
+    convergence, so the plain `pcg` stays the default; chunking can pay
+    off only for slow-converging systems (hundreds of iterations).
     Same stopping rule as `pcg` (preconditioned-norm relative residual).
     """
     dot = precise_dot if use_precise_dot else default_dot
@@ -279,8 +279,8 @@ def pcg_pair(
     equivalent to pcg (solutions match, tests/test_amg.py).
 
     The reference pipeline solves in f64 (Hypre PCG,
-    HypreDoFLinearSystem.cc:686-742); f32+compensation is the TPU-native
-    equivalent that avoids emulated-f64 kernels entirely.
+    HypreDoFLinearSystem.cc:686-742); f32+compensation keeps f32 vector
+    traffic while approaching its accuracy.
     """
     dot = precise_dot
 
@@ -394,10 +394,9 @@ def gmres(
     """Restarted GMRES(m), right-preconditioned (the Aleph method_gmres
     role, AlephDoFLinearSystemFactory.axl:34-43).
 
-    TPU-first design: the Krylov basis V is a static (m+1, n) matrix;
-    orthogonalization is classical Gram-Schmidt applied twice (CGS2) so the
-    projections are two (m+1,n)x(n,) matvecs that ride the MXU instead of
-    j sequential modified-GS dots; the Hessenberg least-squares problem is
+    The Krylov basis V is a static (m+1, n) matrix; orthogonalization is
+    classical Gram-Schmidt applied twice (CGS2) so the projections are two
+    (m+1,n)x(n,) matvecs instead of j sequential modified-GS dots; the Hessenberg least-squares problem is
     updated with Givens rotations so the residual norm is available every
     inner step without forming residuals.  Right preconditioning keeps the
     monitored norm the TRUE residual norm ||b - A x||; convergence is
@@ -405,7 +404,7 @@ def gmres(
 
     With ``use_precise_dot`` projections and norms use the compensated dot2
     (vmapped over basis rows), which lets f32 runs reach ~1e-8 relative
-    residuals on TPU.  Returns (x, total_inner_iterations, rel_residual).
+    residuals.  Returns (x, total_inner_iterations, rel_residual).
     """
     m = restart
     n = b.shape[0]
@@ -418,7 +417,7 @@ def gmres(
         # but masked by the caller)
         if proj is not None:
             return proj(V, w)
-        return V @ w
+        return jnp.matmul(V, w)
 
     def norm(v):
         return jnp.sqrt(jnp.abs(dot(v, v)))
@@ -440,9 +439,9 @@ def gmres(
         mask = (rows <= j).astype(dtype)
         # CGS2: two rounds of classical Gram-Schmidt
         h = basis_dots(V, w) * mask
-        w = w - V.T @ h
+        w = w - jnp.matmul(V.T, h)
         h2 = basis_dots(V, w) * mask
-        w = w - V.T @ h2
+        w = w - jnp.matmul(V.T, h2)
         h = h + h2
         hnext = norm(w)
         V = V.at[j + 1].set(w / jnp.maximum(hnext, tiny))
@@ -497,7 +496,7 @@ def gmres(
         y = jax.scipy.linalg.solve_triangular(
             Ht, jnp.where(used, g[:m], 0.0), lower=False
         )
-        x = x + M.apply(V[:m].T @ y)
+        x = x + M.apply(jnp.matmul(V[:m].T, y))
         return (x, res, it + j)
 
     x, res, iters = jax.lax.while_loop(
@@ -524,8 +523,8 @@ def bicgstab(
     Convergence is measured on the left-preconditioned residual ||M r||_2
     (the PETSc default), for the same penalty-row-scaling reason as pcg.
     With ``use_precise_dot`` every recurrence dot runs the compensated
-    dot2, which is what lets f32 nonsymmetric solves on TPU reach the
-    same tight residuals as PCG.
+    dot2, which is what lets f32 nonsymmetric solves reach the same tight
+    residuals as PCG.
     """
     dot = precise_dot if use_precise_dot else default_dot
 

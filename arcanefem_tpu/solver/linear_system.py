@@ -1,6 +1,6 @@
 """Linear-system facade with deferred boundary-condition semantics.
 
-TPU-native counterpart of the reference's ``DoFLinearSystem``
+Device counterpart of the reference's ``DoFLinearSystem``
 (femutils/DoFLinearSystem.h:126-286) and its backends.  The deferred
 semantics are preserved exactly:
 
@@ -162,12 +162,6 @@ class SolverOptions:
     gmres_restart: int = 30  # Krylov basis size for method="gmres"
     preconditioner: str = "jacobi"  # none | jacobi | block-jacobi
     precise_dot: bool = True  # compensated f32 dots (no-op for f64)
-    # SpMV backend: "pallas" (window kernel on TPU, sparse/pallas_spmv.py;
-    # silently falls back to the XLA gather when no window plan exists or
-    # off-TPU) or "xla" to force the gather form.  Pallas is the default:
-    # the XLA gather runs ~0.11 Gelem/s on big meshes (~8x slower than the
-    # window kernel at 300k nodes).
-    spmv: str = "pallas"
     # optional (n_dofs, m) near-nullspace handed to the AMG setup — rigid
     # body modes for elasticity-family block systems
     # (solver/amg.py::rigid_body_modes); ignored by other preconditioners
@@ -239,30 +233,9 @@ def solve_finalized(
         x = jnp.linalg.solve(dense, b)
         return x, {"iterations": 1, "residual": 0.0}
 
-    if options.spmv == "pallas":
-        from ..sparse.pallas_spmv import as_pallas_matrix
-
-        A = as_pallas_matrix(A)
     M = precond if precond is not None else make_precond(
         A, options.preconditioner, nullspace=options.amg_nullspace
     )
-    from .amg import AMGPrecond
-
-    if (isinstance(M, AMGPrecond) and M.mats
-            and hasattr(M.mats[0], "gather")
-            and options.spmv == "pallas"
-            and precond is None
-            and A.values.dtype == jnp.float32):
-        # the AMG hierarchy's fine operator IS the finalized matrix, in
-        # split window-kernel form (fewer padded slots than the runtime-
-        # valued ELL kernel: 4.5 vs 6.7 ms/SpMV at 270k nodes) — use it
-        # for the Krylov A·p as well.  Guards: only when M was built HERE
-        # from this A (precond is None — a caller-supplied AMGPrecond may
-        # be frozen from older values), only when the pallas path is
-        # requested (spmv="xla" must mean xla), and only in f32 (the
-        # window plans bake f32 weights; swapping would silently degrade
-        # an f64 solve).
-        A = M.mats[0]
     if x0 is None:
         x0 = jnp.zeros_like(b)
     use_precise = options.precise_dot and b.dtype == jnp.float32

@@ -1,12 +1,12 @@
 """Geometric multigrid preconditioner for structured-box problems.
 
-The TPU-native counterpart of the reference's BoomerAMG-preconditioned PCG
+The structured-box counterpart of the reference's BoomerAMG-preconditioned PCG
 (femutils/HypreDoFLinearSystem.cc:686-742: 1 V-cycle of AMG per CG
 iteration).  On a structured Kuhn-tet box every multigrid ingredient is a
 regular stencil operation — damped-Jacobi smoothing, trilinear
 prolongation/full-weighting restriction via per-axis reshape/concat (no
 scatter, no gather), and rediscretized coarse operators assembled with the
-same stencil assembly — so the whole V-cycle runs at HBM bandwidth.
+same stencil assembly — so the whole V-cycle is bandwidth-bound streaming.
 
 Where BoomerAMG builds its hierarchy from the matrix graph (PMIS coarsening,
 HypreDoFLinearSystem.cc:698-723), the structured hierarchy is geometric:
@@ -91,8 +91,7 @@ def restrict3(xf: jnp.ndarray, fshape, cshape) -> jnp.ndarray:
 class MGPrecond:
     """V-cycle preconditioner.
 
-    mats: per-level penalized operators — DiaMatrix (XLA rolls) or
-    DiaStencilMatrix (fused Pallas plane kernel, sparse/dia_pallas.py).
+    mats: per-level penalized DiaMatrix operators.
     """
 
     mats: tuple
@@ -104,15 +103,8 @@ class MGPrecond:
 
     coarse_iters: int = 40
 
-    def _A(self, l: int):
-        return self.mats[l]
-
     def _smooth(self, l: int, x, b, sweeps: int):
-        A, d = self._A(l), self.inv_diags[l]
-        if hasattr(A, "jacobi_sweep"):
-            for _ in range(sweeps):
-                x = A.jacobi_sweep(x, b, self.omega)
-            return x
+        A, d = self.mats[l], self.inv_diags[l]
         om = jnp.asarray(self.omega, b.dtype)
         for _ in range(sweeps):
             x = x + om * d * (b - A.spmv(x))
@@ -123,8 +115,7 @@ class MGPrecond:
             x = jnp.zeros_like(b)
             return self._smooth(l, x, b, self.coarse_iters)
         x = self._smooth(l, jnp.zeros_like(b), b, self.nu)
-        A0 = self._A(l)
-        r = A0.residual(b, x) if hasattr(A0, "residual") else b - A0.spmv(x)
+        r = b - self.mats[l].spmv(x)
         r = jnp.where(self.masks[l], 0.0, r)
         rc = restrict3(r, self.shapes[l], self.shapes[l + 1])
         rc = jnp.where(self.masks[l + 1], 0.0, rc)
@@ -140,180 +131,6 @@ class MGPrecond:
         return jnp.where(self.masks[0], r * self.inv_diags[0], z)
 
 
-# --- padded-layout V-cycle (TPU fast path, zero pad/unpad per iteration) ---
-
-@partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["mats", "inv_diags_p", "maskmul_p", "masks_p"],
-    meta_fields=["shapes", "nu", "omega", "coarse_iters", "omegas"],
-)
-@dataclass
-class MGPrecondP:
-    """V-cycle over padded plane-layout vectors (sparse/dia_pallas.py
-    DiaPlaneMatrixP).  Differences from MGPrecond:
-
-    * vectors stay in the (nx+1, nyp2, nzp) zero-padded layout end-to-end;
-      only the restrict/prolong level transfers touch the real layout;
-    * the first pre-smooth sweep starts from x=0, so it is the elementwise
-      ω·D⁻¹·b — one full band pass saved per level per cycle;
-    * the Dirichlet mask multiply is fused into the residual kernel.
-    """
-
-    mats: tuple  # DiaPlaneMatrixP per level
-    inv_diags_p: tuple  # per level (nx+1, nyp2, nzp)
-    maskmul_p: tuple  # per level f32: 1.0 free row, 0.0 Dirichlet, 0.0 pads
-    masks_p: tuple  # per level bool (True = Dirichlet; False on pads)
-    shapes: tuple  # per level real (nx+1, ny+1, nz+1)
-    nu: int = 2
-    omega: float = 0.8
-    coarse_iters: int = 40
-    # Chebyshev-root Richardson weights: when set (len == nu), the pre-
-    # smoother applies them in order and the post-smoother in REVERSE
-    # order (keeps M symmetric for PCG).  The product polynomial
-    # Π(1 − ω_k λ) is the degree-nu Chebyshev smoother on [a, b] without
-    # the momentum recurrence (same kernel cost as plain Jacobi sweeps).
-    omegas: tuple = ()
-
-    def _sweep_omega(self, k: int, reverse: bool) -> float:
-        if not self.omegas:
-            return self.omega
-        return self.omegas[::-1][k] if reverse else self.omegas[k]
-
-    def _smooth0(self, l: int, bp, sweeps: int):
-        """`sweeps` damped-Jacobi/Chebyshev sweeps starting from x = 0."""
-        seq = self.omegas if (self.omegas and sweeps == self.nu) else None
-        om0 = seq[0] if seq else self.omega
-        x = jnp.asarray(om0, bp.dtype) * self.inv_diags_p[l] * bp
-        for k in range(1, sweeps):
-            om = seq[k] if seq else self.omega
-            x = self.mats[l].jacobi_sweep(x, bp, self.inv_diags_p[l], om)
-        return x
-
-    def _restrict(self, l: int, rp):
-        """fine padded level l -> coarse padded level l+1 (real-layout hop)."""
-        Af, Ac = self.mats[l], self.mats[l + 1]
-        r = Af.unpad_vec(rp)
-        rc = restrict3(r, self.shapes[l], self.shapes[l + 1])
-        return Ac.pad_vec(rc)
-
-    def _prolong(self, l: int, xcp):
-        Af, Ac = self.mats[l], self.mats[l + 1]
-        xc = Ac.unpad_vec(xcp)
-        x = prolong3(xc, self.shapes[l + 1], self.shapes[l])
-        return Af.pad_vec(x)
-
-    def _vcycle(self, l: int, bp):
-        if l == len(self.mats) - 1:
-            return self._smooth0(l, bp, self.coarse_iters)
-        A, invd = self.mats[l], self.inv_diags_p[l]
-        x = self._smooth0(l, bp, self.nu)
-        r = A.residual(bp, x, self.maskmul_p[l])
-        rc = self._restrict(l, r) * self.maskmul_p[l + 1]
-        xc = self._vcycle(l + 1, rc) * self.maskmul_p[l + 1]
-        x = x + self._prolong(l, xc)
-        for k in range(self.nu):
-            x = A.jacobi_sweep(x, bp, invd, self._sweep_omega(k, reverse=True))
-        return x
-
-    def apply(self, rp: jnp.ndarray) -> jnp.ndarray:
-        """M⁻¹ r on padded vectors: V-cycle free rows + exact Jacobi on
-        penalty rows."""
-        z = self._vcycle(0, rp * self.maskmul_p[0])
-        return jnp.where(self.masks_p[0], rp * self.inv_diags_p[0], z)
-
-
-def build_mg_padded(
-    box: StructuredBox,
-    coords3d: jnp.ndarray,
-    dirichlet_mask: np.ndarray,
-    penalty: float,
-    bc_planes: tuple = ("xmin", "xmax"),
-    min_size: int = 8,
-    nu: int = 2,
-    omega: float = 0.8,
-    coarse_iters: int = 40,
-    fine=None,
-    fused: bool = True,
-    cheb: bool = False,
-    band_dtype=None,
-) -> MGPrecondP:
-    """build_mg twin producing the padded-layout hierarchy (TPU only).
-
-    Every level is assembled+penalized by the fused plane kernel
-    (mesh/pallas_stencil.assemble_system_pallas) — one HBM pass per level.
-    Pass `fine` (an already-penalized DiaPlaneMatrixP, e.g. the solve's own
-    system matrix) to reuse it as level 0 instead of re-assembling.
-    fused=False re-discretizes via the plain assembly kernel +
-    to_plane_matrix transpose instead.  cheb=True smooths with the
-    degree-nu Chebyshev product polynomial on [0.3ρ, 1.05ρ] (ρ = 2, the
-    Gershgorin bound of D⁻¹A for zero-row-sum Laplacian stiffness)
-    instead of fixed-ω Jacobi — same cost per sweep, better smoothing.
-    band_dtype=jnp.bfloat16 stores the HIERARCHY's bands at half width
-    (the preconditioner tolerates it; the caller's fine operator for the
-    CG SpMV stays f32) — halves the band traffic of every smoother and
-    residual pass.
-    """
-    from ..mesh.pallas_stencil import assemble_system_pallas
-    from ..sparse.dia_pallas import pad_host_vec, to_plane_matrix
-
-    mats, inv_diags, maskmuls, masks, shapes = [], [], [], [], []
-    b, c3, mask = box, coords3d, np.asarray(dirichlet_mask)
-    while True:
-        mask_p = jnp.asarray(pad_host_vec(b, mask.astype(np.float32)))
-        if fine is not None and not mats:
-            Ap = fine
-        elif not fused:
-            A = b.assemble_stiffness(c3)
-            d0 = A.offsets.index(0)
-            pen = jnp.where(
-                jnp.asarray(mask), jnp.asarray(penalty, A.bands.dtype),
-                A.bands[d0],
-            )
-            Ap = to_plane_matrix(
-                DiaMatrix(bands=A.bands.at[d0].set(pen), offsets=A.offsets), b
-            )
-        else:
-            Ap, _ = assemble_system_pallas(
-                b, c3, mask_p, jnp.zeros_like(mask_p), penalty
-            )
-        # inverse diagonal from the FULL-precision bands (penalty rows get
-        # the exact 1/P action in apply()); only the band storage is cast
-        inv_diags.append(Ap.inv_diagonal_p())
-        if band_dtype is not None:
-            Ap = Ap.astype_bands(band_dtype)
-        mats.append(Ap)
-        maskmuls.append(1.0 - mask_p)  # pads get 1.0: harmless, they only
-        masks.append(mask_p > 0.5)  # ever multiply exact zeros
-        shapes.append((b.nx + 1, b.ny + 1, b.nz + 1))
-        if (
-            b.nx % 2 or b.ny % 2 or b.nz % 2
-            or min(b.nx, b.ny, b.nz) // 2 < min_size
-        ):
-            break
-        b = StructuredBox(b.nx // 2, b.ny // 2, b.nz // 2, b.lx, b.ly, b.lz)
-        c3 = c3.reshape(shapes[-1] + (3,))[::2, ::2, ::2]
-        mask = b.boundary_mask(bc_planes)
-    omegas = ()
-    if cheb:
-        a, bnd = 0.3 * 2.0, 1.05 * 2.0
-        omegas = tuple(
-            1.0
-            / ((a + bnd) / 2 + (bnd - a) / 2 * np.cos(np.pi * (2 * k - 1) / (2 * nu)))
-            for k in range(1, nu + 1)
-        )
-    return MGPrecondP(
-        mats=tuple(mats),
-        inv_diags_p=tuple(inv_diags),
-        maskmul_p=tuple(maskmuls),
-        masks_p=tuple(masks),
-        shapes=tuple(shapes),
-        nu=nu,
-        omega=omega,
-        coarse_iters=coarse_iters,
-        omegas=omegas,
-    )
-
-
 def build_mg(
     box: StructuredBox,
     coords3d: jnp.ndarray,
@@ -323,14 +140,11 @@ def build_mg(
     min_size: int = 8,
     nu: int = 2,
     omega: float = 0.8,
-    use_stencil_spmv: bool = False,
 ) -> MGPrecond:
     """Build the hierarchy: coarsen the grid 2x per axis while divisible.
 
     dirichlet_mask: fine-level (n_nodes,) bool of penalty rows; coarse masks
     are the same box planes on the coarse grids.
-    use_stencil_spmv: wrap each level in the fused Pallas plane kernel
-    (TPU only).
     """
     dtype = coords3d.dtype
     mats, inv_diags, masks, shapes = [], [], [], []
@@ -341,12 +155,7 @@ def build_mg(
         pen = jnp.where(jnp.asarray(mask), jnp.asarray(penalty, dtype), A.bands[d0])
         Ab = A.bands.at[d0].set(pen)
         d = Ab[d0]
-        Ap = DiaMatrix(bands=Ab, offsets=A.offsets)
-        if use_stencil_spmv:
-            from ..sparse.dia_pallas import to_stencil_matrix
-
-            Ap = to_stencil_matrix(Ap, b)
-        mats.append(Ap)
+        mats.append(DiaMatrix(bands=Ab, offsets=A.offsets))
         inv_diags.append(jnp.where(d != 0, 1.0 / jnp.where(d == 0, 1.0, d), 0.0))
         masks.append(jnp.asarray(mask))
         shapes.append((b.nx + 1, b.ny + 1, b.nz + 1))

@@ -1,9 +1,9 @@
-"""Chebyshev polynomial preconditioner — the TPU-native stand-in for
+"""Chebyshev polynomial preconditioner — the device stand-in for
 Aleph's poly/ainv/ic/ilu/ilup preconditioner options
 (AlephDoFLinearSystemFactory.axl:34-43).
 
 Incomplete factorizations (ic/ilu/ilup) apply triangular solves, which are
-inherently sequential and do not map onto the TPU's vector units; sparse
+inherently sequential and leave a wide device mostly idle; sparse
 approximate inverses (ainv) need per-row least squares at setup.  The
 standard accelerator substitute for all of them is a fixed-degree
 polynomial in the Jacobi-scaled operator: every apply is `degree` SpMVs +
@@ -38,7 +38,7 @@ Array = jnp.ndarray
 class ChebyshevPrecond:
     """apply(r) = p(D^{-1}A) D^{-1} r, p = degree-`degree` Chebyshev."""
 
-    A: object  # BellMatrix / PallasBellMatrix / PlaneMatrix (has .spmv)
+    A: object  # BellMatrix or DiaMatrix (has .spmv)
     inv_diag: Array
     theta: Array  # (lmax+lmin)/2
     delta: Array  # (lmax-lmin)/2

@@ -4,7 +4,7 @@
 Unlike BELL/CSR (sparse/topology.py), COO needs NO precomputed sparsity:
 rows/cols/vals are emitted straight from cell connectivity with duplicates
 kept, exactly like the reference's `matrixAddValue` accumulation.  The
-TPU-native operations on it:
+device operations on it:
 
 * ``spmv`` — duplicates are summed on the fly by a segment-sum over rows
   (deterministic; the role of the reference's atomicAdd translate loop).

@@ -1,16 +1,15 @@
 """DIA (diagonal/offset) sparse matrix — the structured-mesh fast path.
 
-On TPU, XLA's gather/scatter run ~3 orders of magnitude below HBM bandwidth
-(measured ~0.11 Gelem/s on v5e), while shifts/slices/elementwise run at
-~700 GB/s.  For meshes whose node graph has a fixed set of index offsets
-(structured boxes, extruded grids), the BELL gather SpMV can be replaced by
-an offset decomposition
+For meshes whose node graph has a fixed set of index offsets (structured
+boxes, extruded grids), the BELL gather SpMV can be replaced by an offset
+decomposition
 
     y = sum_d  band_d * shift(x, d)
 
-which is pure VPU + DMA and runs at memory speed.  This fills the role the
-CUDA atomics + CSR machinery plays in the reference's benchmark path
-(femutils/BSRFormat.h:842-898) — same math, hardware-native layout.
+which needs no column indices at all: XLA fuses the D shifted
+multiply-adds into one streaming pass over the bands.  This fills the role
+the CUDA atomics + CSR machinery plays in the reference's benchmark path
+(femutils/BSRFormat.h:842-898) — same math, index-free layout.
 
 ``shift`` is implemented as jnp.roll: wrap-around lanes read unrelated x
 values, but the corresponding band entries are zero by construction (no

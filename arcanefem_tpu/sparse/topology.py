@@ -1,20 +1,20 @@
 """Sparsity topology + assembly slot maps (host NumPy, built once per mesh).
 
-TPU-native replacement for the reference's BSRFormat sparsity builders
+Host-side replacement for the reference's BSRFormat sparsity construction
 (reference femutils/BSRFormat.h:353-781: packed-edge sort + atomic
 neighbor count + exclusive-scan row index + atomic column scatter).
 
-On TPU there are no fast atomics, so the whole "find the nnz slot for
-(row,col) at every write" discipline (BSRFormat.h:145 findValueIndex)
-is inverted: we precompute, once per (mesh, dof-layout), a *static slot
-index* for every (cell, i, j) entry.  Assembly then becomes a batched
-element-matrix computation + one segment-sum — deterministic by
-construction (the reference's "atomic-free" variant is the same idea,
-BSRFormat.h:938-1100).
+The "find the nnz slot for (row,col) at every write" discipline
+(BSRFormat.h:145 findValueIndex) is inverted: we precompute, once per
+(mesh, dof-layout), a *static slot index* for every (cell, i, j) entry.
+Assembly then becomes a batched element-matrix computation + one
+segment-sum into known slots — a scatter-add with no search, atomic on
+the GPU (the reference's "atomic-free" variant precomputes slots the same
+way, BSRFormat.h:938-1100).
 
 Primary device layout is **BELL (blocked ELLPACK)**: every block-row is
 padded to a fixed width W.  This trades ~(W/avg_degree - 1) padding for
-perfectly regular gathers — the shape XLA/TPU wants — and makes SpMV a
+perfectly regular gathers — the shape XLA fuses well — and makes SpMV a
 gather + small-einsum + row-reduction with zero scatters.  A CSR view of
 the same topology is kept for interop/tests (the role of
 BSRMatrix::toCsr, BSRFormat.h:194-256).
@@ -49,9 +49,9 @@ class Topology:
     slot_maps: dict[str, np.ndarray]
 
     def __getstate__(self):
-        # drop derived caches (e.g. the _pallas_spmv kernel attached by
-        # sparse/pallas_spmv._cached_spmv): they are mode-dependent and
-        # would bloat pickled AMG hierarchies with whole kernel plans
+        # drop derived caches (underscore attributes such as testlab's
+        # sorted slot maps): they are rebuilt on demand and would bloat
+        # pickled hierarchies
         d = dict(self.__dict__)
         for k in list(d):
             if k.startswith("_"):

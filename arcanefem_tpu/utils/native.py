@@ -59,40 +59,7 @@ def library():
     lib.afem_topo_fill.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 7
     lib.afem_topo_free.restype = None
     lib.afem_topo_free.argtypes = [ctypes.c_void_p]
-    # window planner (planner.cpp) — absent in pre-round-4 builds of the
-    # library; rebuild if the symbol is missing
-    if not hasattr(lib, "afem_plan_build"):
-        try:
-            subprocess.run(["make", "-s", "-B", "-C", _NATIVE_DIR],
-                           check=True, capture_output=True, timeout=120)
-            lib = ctypes.CDLL(_LIB_PATH)
-        except Exception:
-            _lib = lib
-            return _lib
-    lib.afem_plan_build.restype = ctypes.c_void_p
-    lib.afem_plan_build.argtypes = [
-        ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
-    ]
-    for fn in ("afem_plan_S", "afem_plan_nb", "afem_plan_need_rows"):
-        getattr(lib, fn).restype = ctypes.c_int32
-        getattr(lib, fn).argtypes = [ctypes.c_void_p]
-    lib.afem_plan_fill.restype = None
-    lib.afem_plan_fill.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 3
-    lib.afem_plan_free.restype = None
-    lib.afem_plan_free.argtypes = [ctypes.c_void_p]
-    lib.afem_subrow_total.restype = ctypes.c_int64
-    lib.afem_subrow_total.argtypes = [
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32]
-    lib.afem_subrow_cols.restype = None
-    lib.afem_subrow_cols.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p]
-    lib.afem_group_by_slot.restype = None
-    lib.afem_group_by_slot.argtypes = [
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p]
-    # AMG-setup kernels (amg_setup.cpp) — absent in pre-round-5 builds
+    # AMG-setup kernels (amg_setup.cpp) — rebuild a stale library
     if not hasattr(lib, "afem_amg_strength_filter"):
         try:
             subprocess.run(["make", "-s", "-B", "-C", _NATIVE_DIR],
@@ -114,34 +81,8 @@ def library():
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
             ctypes.c_double, ctypes.c_int32, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]
-    if hasattr(lib, "afem_compact_uniq"):
-        lib.afem_compact_uniq.restype = ctypes.c_int64
-        lib.afem_compact_uniq.argtypes = [
-            ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
     _lib = lib
     return _lib
-
-
-def compact_uniq_native(cols: np.ndarray, R: int):
-    """Per-block distinct-column compaction (amg_setup.cpp): cols (n, W)
-    int32 with -1 pads -> (uniq int32 concat, remap (n, W) int64) or
-    None.  The _compact_columns hot loop."""
-    lib = library()
-    if lib is None or not hasattr(lib, "afem_compact_uniq"):
-        return None
-    cols = np.ascontiguousarray(cols, np.int32)
-    n, W = cols.shape
-    nb = -(-n // R) if n else 1
-    cap = int((cols >= 0).sum()) + nb
-    uniq = np.empty(cap, np.int32)
-    remap = np.empty((n, W), np.int64)
-    total = lib.afem_compact_uniq(
-        n, W, cols.ctypes.data_as(ctypes.c_void_p), R,
-        uniq.ctypes.data_as(ctypes.c_void_p),
-        remap.ctypes.data_as(ctypes.c_void_p),
-    )
-    return uniq[:total].copy(), remap
 
 
 def amg_strength_filter_native(indptr: np.ndarray, cols: np.ndarray,
@@ -211,92 +152,6 @@ def amg_smooth_p_native(indptr: np.ndarray, cols: np.ndarray,
         p_data.ctypes.data_as(ctypes.c_void_p),
     )
     return p_indptr, p_cols[:pnnz].copy(), p_data[:pnnz].copy()
-
-
-def group_by_slot_native(slots: np.ndarray, entry_map, n_slots: int):
-    """Counting sort of entries by slot: (indices (E,) i32 grouped by slot,
-    deg (n_slots,) i32) — the argsort+gather+bincount of the assembly
-    reducer in O(E).  None when the library is unavailable."""
-    lib = library()
-    if lib is None or not hasattr(lib, "afem_group_by_slot"):
-        return None
-    slots = np.ascontiguousarray(slots, np.int32)
-    em_ptr = None
-    if entry_map is not None:
-        entry_map = np.ascontiguousarray(entry_map, np.int32)
-        em_ptr = entry_map.ctypes.data_as(ctypes.c_void_p)
-    E = len(slots)
-    indices = np.empty(E, np.int32)
-    deg = np.empty(n_slots, np.int32)
-    lib.afem_group_by_slot(
-        E, slots.ctypes.data_as(ctypes.c_void_p), em_ptr, n_slots,
-        indices.ctypes.data_as(ctypes.c_void_p),
-        deg.ctypes.data_as(ctypes.c_void_p),
-    )
-    return indices, deg
-
-
-def plan_windows_native(cols: np.ndarray, block_rows: int, max_window: int,
-                        slot_candidates) -> tuple | None:
-    """Native plan_windows_from_cols core (planner.cpp).
-
-    cols: (n, W) int32; NEGATIVE entries are padding and receive the
-    _UNIT_PAD sentinel virtual index.  Returns (lo (nb,S) i32,
-    slot_rows tuple, virt (nb, R*W) i32, need_rows); None when the
-    library is unavailable; False when the planner found NO layout that
-    fits max_window (a definitive answer — don't re-run the numpy
-    planner to learn the same thing)."""
-    lib = library()
-    if lib is None or not hasattr(lib, "afem_plan_build"):
-        return None
-    cols = np.ascontiguousarray(cols, np.int32)
-    n, W = cols.shape
-    cands = np.asarray(sorted(slot_candidates), np.int32)
-    h = lib.afem_plan_build(
-        n, W, cols.ctypes.data_as(ctypes.c_void_p),
-        block_rows, max_window,
-        cands.ctypes.data_as(ctypes.c_void_p), len(cands),
-    )
-    if not h:
-        return False
-    try:
-        S = lib.afem_plan_S(h)
-        nb = lib.afem_plan_nb(h)
-        need_rows = lib.afem_plan_need_rows(h)
-        lo = np.empty((nb, S), np.int32)
-        slot_rows = np.empty(S, np.int32)
-        virt = np.empty((nb, block_rows * W), np.int32)
-        lib.afem_plan_fill(
-            h, lo.ctypes.data_as(ctypes.c_void_p),
-            slot_rows.ctypes.data_as(ctypes.c_void_p),
-            virt.ctypes.data_as(ctypes.c_void_p),
-        )
-    finally:
-        lib.afem_plan_free(h)
-    return lo, tuple(int(r) for r in slot_rows), virt, int(need_rows)
-
-
-def subrow_cols_native(ccols: np.ndarray, deg: np.ndarray,
-                       wcap: int) -> tuple | None:
-    """Native subrow layout for unit split plans: (s_cols (total, wcap)
-    int32 with -1 pads, nsub (n,) int32) or None."""
-    lib = library()
-    if lib is None or not hasattr(lib, "afem_subrow_cols"):
-        return None
-    ccols = np.ascontiguousarray(ccols, np.int32)
-    deg = np.ascontiguousarray(deg, np.int32)
-    n = len(deg)
-    total = lib.afem_subrow_total(
-        n, deg.ctypes.data_as(ctypes.c_void_p), wcap)
-    s_cols = np.empty((total, wcap), np.int32)
-    nsub = np.empty(n, np.int32)
-    lib.afem_subrow_cols(
-        n, len(ccols), ccols.ctypes.data_as(ctypes.c_void_p),
-        deg.ctypes.data_as(ctypes.c_void_p), wcap,
-        s_cols.ctypes.data_as(ctypes.c_void_p),
-        nsub.ctypes.data_as(ctypes.c_void_p),
-    )
-    return s_cols, nsub
 
 
 def build_topology_native(n_nodes: int, buckets: dict, pad_width_to: int):

@@ -1,9 +1,9 @@
 """Bandwidth-reducing node orderings (host, once per mesh).
 
 Reverse Cuthill-McKee over the node graph.  The reference leaves DoF order
-to Arcane's mesh numbering; on TPU, locality is a first-class concern: the
-Pallas window SpMV (sparse/pallas_spmv.py) DMAs a contiguous x-window per
-row block, so the matrix bandwidth directly sets the window size.
+to Arcane's mesh numbering; here a small bandwidth keeps the SpMV's
+gather of x local (cache reuse), and renumber_mesh also sorts cells by
+minimum node so the assembly's reads stay local too.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def renumber_mesh(mesh: Mesh, perm: np.ndarray) -> Mesh:
     def renum_sort(c):
         c2 = inv[c].astype(np.int32)
         # sort cells by min node so the cell-major entry array is also
-        # bandwidth-local (required by the Pallas assembly gather)
+        # bandwidth-local (the assembly reads stay local)
         return c2[np.argsort(c2.min(axis=1), kind="stable")]
 
     return Mesh(

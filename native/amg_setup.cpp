@@ -7,8 +7,7 @@
 // (~6 s).  These are single-pass CSR traversals in C++.  Role reference:
 // Hypre's BoomerAMG setup runs this phase in 0.5-1.5 s at 10M rows on
 // device (femutils/HypreDoFLinearSystem.cc:730 timer); this file is the
-// host half of closing that class gap (the spectral-radius estimates move
-// to the TPU separately).
+// host half of closing that class gap.
 //
 // Numerics are kept IDENTICAL to the scipy path:
 //  * strength:  |a_ij| >= theta * sqrt(|a_ii * a_jj|), i != j
@@ -175,61 +174,3 @@ int64_t afem_amg_smooth_p(
 }
 
 }  // extern "C"
-
-// Per-block distinct-column compaction (the _compact_columns core).
-// cols: (n, W) int32, entries < 0 are padding.  Block b = rows
-// [b*R, (b+1)*R).  Outputs: uniq (concatenated per-block sorted distinct
-// real columns; empty blocks contribute one 0 entry), remap (n, W) int64
-// (pad entries -> their block's first compact slot).
-//  ret: total uniq length (uniq buffer must hold >= total valid + nb).
-extern "C" int64_t afem_compact_uniq(
-    int64_t n, int32_t W, const int32_t* cols, int64_t R,
-    int32_t* uniq, int64_t* remap) {
-  const int64_t nb = (n + R - 1) / R;
-  std::vector<int32_t> buf;
-  buf.reserve((size_t)R * W);
-  std::vector<int32_t> lut;  // block-range value -> uniq index (O(1),
-                             // L2-resident; per-entry lower_bound was 5x
-                             // SLOWER than the numpy loop it replaced)
-  int64_t off = 0;
-  for (int64_t b = 0; b < nb; ++b) {
-    const int64_t r0 = b * R;
-    const int64_t r1 = std::min(n, r0 + R);
-    buf.clear();
-    int32_t lo = INT32_MAX, hi = -1;
-    for (int64_t r = r0; r < r1; ++r) {
-      const int32_t* cr = cols + r * W;
-      for (int32_t w = 0; w < W; ++w) {
-        const int32_t c = cr[w];
-        if (c >= 0) {
-          buf.push_back(c);
-          if (c < lo) lo = c;
-          if (c > hi) hi = c;
-        }
-      }
-    }
-    if (buf.empty()) {
-      uniq[off] = 0;
-      for (int64_t r = r0; r < r1; ++r)
-        for (int32_t w = 0; w < W; ++w) remap[r * W + w] = off;
-      off += 1;
-      continue;
-    }
-    std::sort(buf.begin(), buf.end());
-    buf.erase(std::unique(buf.begin(), buf.end()), buf.end());
-    std::memcpy(uniq + off, buf.data(), buf.size() * sizeof(int32_t));
-    const int64_t range = (int64_t)hi - lo + 1;
-    if ((int64_t)lut.size() < range) lut.resize(range);
-    for (size_t u = 0; u < buf.size(); ++u) lut[buf[u] - lo] = (int32_t)u;
-    for (int64_t r = r0; r < r1; ++r) {
-      const int32_t* cr = cols + r * W;
-      int64_t* rr = remap + r * W;
-      for (int32_t w = 0; w < W; ++w) {
-        const int32_t c = cr[w];
-        rr[w] = c < 0 ? off : off + lut[c - lo];
-      }
-    }
-    off += (int64_t)buf.size();
-  }
-  return off;
-}

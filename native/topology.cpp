@@ -3,7 +3,7 @@
 // Role of the reference's BSRFormat::computeSparsity pipeline
 // (femutils/BSRFormat.h:583-744: packed-edge build + GPU sort + atomic
 // neighbor count + exclusive-scan row index + atomic column scatter) for the
-// TPU build's host preprocessing: given cell connectivity buckets, produce
+// device build's host preprocessing: given cell connectivity buckets, produce
 //   * the node-graph CSR (row_ptr, cols),
 //   * the padded BELL layout (ell width, ell cols, validity),
 //   * the per-cell-entry flat slot map used by the device segment-sum

@@ -50,7 +50,7 @@ def test_amg_beats_jacobi_and_matches():
     )
     xj, kj, _ = pcg(A, rhs, MJ, x0, 1e-10, 0.0, 3000)
 
-    M = build_amg(A, use_pallas=False)
+    M = build_amg(A)
     assert len(M.mats) >= 1, "hierarchy should have at least one level"
     xa, ka, ra = pcg(A, rhs, M, x0, 1e-10, 0.0, 3000)
 
@@ -109,7 +109,7 @@ def test_aggregate_pathological_graphs_bounded():
 def test_amg_coarse_only_dense():
     """Tiny system: no levels, pure dense-inverse preconditioner."""
     A, rhs, x0 = _poisson_system(4)
-    M = build_amg(A, coarse_size=10_000, use_pallas=False)
+    M = build_amg(A, coarse_size=10_000)
     assert len(M.mats) == 0
     x, k, _ = pcg(A, rhs, M, x0, 1e-10, 0.0, 50)
     assert int(k) <= 2, f"dense-preconditioned CG took {int(k)}"
@@ -147,7 +147,7 @@ def test_amg_block_elasticity():
 
     from arcanefem_tpu.solver.amg import build_amg
 
-    M = build_amg(A, use_pallas=False)
+    M = build_amg(A)
     assert len(M.mats) >= 1
     xa, ka, _ = pcg(A, rhs, M, x0, 1e-10, 0.0, 8000)
     assert int(ka) < int(kb) / 2, f"AMG {int(ka)} vs block-jacobi {int(kb)}"
@@ -185,12 +185,12 @@ def test_amg_rigid_body_modes_improve_elasticity():
     rhs = jnp.where(jnp.asarray(mask), 0.0, 1.0)
     x0 = jnp.zeros(prob.n_dofs)
 
-    Mt = build_amg(A, use_pallas=False)
+    Mt = build_amg(A)
     xt, kt, _ = pcg(A, rhs, Mt, x0, 1e-10, 0.0, 8000)
 
     B = rigid_body_modes(mesh.coords, 2)
     assert B.shape == (prob.n_dofs, 3)
-    Mr = build_amg(A, use_pallas=False, nullspace=B)
+    Mr = build_amg(A, nullspace=B)
     xr, kr, _ = pcg(A, rhs, Mr, x0, 1e-10, 0.0, 8000)
     assert int(kr) < int(kt), f"RBM {int(kr)} vs translations {int(kt)}"
     np.testing.assert_allclose(
@@ -222,10 +222,10 @@ def test_amg_chebyshev_smoother():
     than the damped-Jacobi V(1,1) (measured 40->25 at 268k nodes)."""
     A, rhs, x0 = _poisson_system()
 
-    Mj = build_amg(A, use_pallas=False)
+    Mj = build_amg(A)
     xj, kj, _ = pcg(A, rhs, Mj, x0, 1e-10, 0.0, 3000)
 
-    Mc = build_amg(A, use_pallas=False, smoother="chebyshev", cheb_deg=2)
+    Mc = build_amg(A, smoother="chebyshev", cheb_deg=2)
     xc, kc, rc = pcg(A, rhs, Mc, x0, 1e-10, 0.0, 3000)
 
     assert int(kc) <= int(kj), f"cheb {int(kc)} vs jacobi {int(kj)}"
@@ -235,13 +235,12 @@ def test_amg_chebyshev_smoother():
 def test_bf16_vcycle_iteration_parity():
     """bf16-precision level operators are preconditioner-rate-only: PCG
     with a bf16-quantized V-cycle must converge to the same answer within
-    a couple of extra iterations (with_bf16_vcycle rationale; on TPU the
-    quantization lives in the window kernels' weight streams — emulated
-    here by round-tripping the level values through bfloat16)."""
+    a couple of extra iterations (level values and transfers round-tripped
+    through bfloat16; the Krylov operator stays full precision)."""
     from dataclasses import replace
 
     A, rhs, x0 = _poisson_system()
-    M = build_amg(A, use_pallas=False)
+    M = build_amg(A)
     xa, ka, _ = pcg(A, rhs, M, x0, 1e-10, 0.0, 3000)
 
     def quant(m):
@@ -250,7 +249,7 @@ def test_bf16_vcycle_iteration_parity():
 
     Mq = replace(
         M,
-        vmats=tuple(quant(m) for m in M.mats),
+        mats=tuple(quant(m) for m in M.mats),
         pvals=tuple(
             p.astype(jnp.bfloat16).astype(p.dtype) for p in M.pvals),
         ptvals=tuple(
@@ -260,39 +259,6 @@ def test_bf16_vcycle_iteration_parity():
 
     assert int(kq) <= int(ka) + 3, f"bf16 V-cycle {int(kq)} vs f32 {int(ka)}"
     np.testing.assert_allclose(np.asarray(xq), np.asarray(xa), atol=2e-7)
-
-
-def test_with_bf16_vcycle_casts_planned_levels():
-    """with_bf16_vcycle: _PlannedMat levels get bf16 gather weights in
-    vmats, mats stay untouched (the Krylov fine operator must remain f32)."""
-    from arcanefem_tpu.solver.amg import _PlannedMat, with_bf16_vcycle
-    from arcanefem_tpu.sparse.pallas_spmv import PlannedGather
-
-    A, rhs, x0 = _poisson_system(n=8)
-    M = build_amg(A, use_pallas=False)
-
-    # graft a PlannedGather onto level 0 (CPU: plans build, kernels don't run)
-    t = M.mats[0].topo
-    cols = np.where(np.asarray(t.ell_valid), np.asarray(t.ell_cols), 0)
-    w = np.asarray(M.mats[0].values, np.float32).reshape(t.n_nodes, t.width)
-    w = w * np.asarray(t.ell_valid)
-    g = PlannedGather.build(cols, w, wcap=0)
-    if g is None:
-        import pytest
-
-        pytest.skip("no window plan for this mesh")
-    Mp = replace_level0(M, _PlannedMat(M.mats[0], g))
-    Mb = with_bf16_vcycle(Mp)
-    assert Mb.vmats[0].gather.vals_tiled.dtype == jnp.bfloat16
-    # original hierarchy untouched
-    assert Mb.mats[0].gather.vals_tiled.dtype == jnp.float32
-    assert Mp.vmats == ()
-
-
-def replace_level0(M, m0):
-    from dataclasses import replace
-
-    return replace(M, mats=(m0,) + tuple(M.mats[1:]))
 
 
 def test_coarse_inverse_singular_fallback():
@@ -335,8 +301,8 @@ def test_theta003_converges_with_leaner_hierarchy():
         return sum(np.asarray(m.values).size for m in M.mats) / float(
             np.asarray(M.mats[0].values).size)
 
-    M8 = build_amg(A, use_pallas=False, smoother="chebyshev")
-    M3 = build_amg(A, use_pallas=False, smoother="chebyshev", theta=0.03)
+    M8 = build_amg(A, smoother="chebyshev")
+    M3 = build_amg(A, smoother="chebyshev", theta=0.03)
     x8, k8, _ = pcg(A, rhs, M8, x0, 1e-10, 0.0, 3000)
     x3, k3, _ = pcg(A, rhs, M3, x0, 1e-10, 0.0, 3000)
 
@@ -350,12 +316,12 @@ def test_per_level_cheb_degree():
     smoother must read its level's degree and still produce the same
     solution; build_sharded_amg shifts the tuple with the stripped level."""
     A, rhs, x0 = _poisson_system()
-    M = build_amg(A, use_pallas=False, smoother="chebyshev",
+    M = build_amg(A, smoother="chebyshev",
                   cheb_deg=(2, 4, 5))
     assert M._deg(0) == 2 and M._deg(1) == 4
     assert M._deg(2) == 5 and M._deg(9) == 5  # last entry repeats
     x, k, _ = pcg(A, rhs, M, x0, 1e-10, 0.0, 3000)
-    M2 = build_amg(A, use_pallas=False, smoother="chebyshev")
+    M2 = build_amg(A, smoother="chebyshev")
     x2, k2, _ = pcg(A, rhs, M2, x0, 1e-10, 0.0, 3000)
     np.testing.assert_allclose(np.asarray(x), np.asarray(x2), atol=2e-7)
     # coarse smoothing can only help (never hurt) the iteration count
@@ -367,8 +333,8 @@ def test_wcycle_matches_and_does_not_regress():
     count no worse than the V-cycle (it addresses deep-level coarse-grid
     correction decay at 10M-class sizes; tools/conv_tune.py)."""
     A, rhs, x0 = _poisson_system(16)
-    Mv = build_amg(A, use_pallas=False, smoother="chebyshev")
-    Mw = build_amg(A, use_pallas=False, smoother="chebyshev", cycle="W")
+    Mv = build_amg(A, smoother="chebyshev")
+    Mw = build_amg(A, smoother="chebyshev", cycle="W")
     xv, kv, _ = pcg(A, rhs, Mv, x0, 1e-10, 0.0, 3000)
     xw, kw, _ = pcg(A, rhs, Mw, x0, 1e-10, 0.0, 3000)
     assert int(kw) <= int(kv)
@@ -382,7 +348,7 @@ def test_pcg_pair_and_flex_match_pcg():
     from arcanefem_tpu.solver.iterative import pcg_flex, pcg_pair
 
     A, rhs, x0 = _poisson_system()
-    M = build_amg(A, use_pallas=False, smoother="chebyshev")
+    M = build_amg(A, smoother="chebyshev")
     x, k, _ = pcg(A, rhs, M, x0, 1e-10, 0.0, 3000, use_precise_dot=True)
     xp, kp, _ = pcg_pair(A, rhs, M, x0, 1e-10, 0.0, 3000)
     xf, kf, _ = pcg_flex(A, rhs, M, x0, 1e-10, 0.0, 3000)

@@ -5,11 +5,15 @@ FemModule.cc:241-244): every sparse-format assembly must agree with a
 straightforward dense accumulation.
 """
 
+from functools import partial
+
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from arcanefem_tpu.fem.problem import FemProblem
 from arcanefem_tpu.mesh import read_msh, rect_tria_mesh
+from arcanefem_tpu.mesh.generate import box_tetra_mesh
 from arcanefem_tpu.ops import elements
 from arcanefem_tpu.sparse.topology import build_topology
 
@@ -32,8 +36,8 @@ def dense_assemble(n_nodes, conn, ke, ndof=1):
     return A
 
 
-def test_topology_symmetry():
-    mesh = read_msh("/root/reference/meshes/msh/circle_cut.msh")
+def test_topology_symmetry(reference_dir):
+    mesh = read_msh(f"{reference_dir}/meshes/msh/circle_cut.msh")
     topo = build_topology(mesh.n_nodes, mesh.cells)
     # node graph contains the diagonal and is symmetric
     rows = np.repeat(np.arange(mesh.n_nodes), np.diff(topo.row_ptr))
@@ -81,9 +85,9 @@ def test_block_assembly_matches_dense():
     np.testing.assert_allclose(ref, ref.T, atol=1e-12)
 
 
-def test_stiffness_kernel_properties():
+def test_stiffness_kernel_properties(reference_dir):
     # rows of the Laplacian element matrix sum to zero (constant in kernel)
-    mesh = read_msh("/root/reference/meshes/msh/circle_cut.msh")
+    mesh = read_msh(f"{reference_dir}/meshes/msh/circle_cut.msh")
     xyz = jnp.asarray(mesh.coords)[jnp.asarray(mesh.cells["tria3"])]
     ke = elements.stiffness_tria3(xyz)
     np.testing.assert_allclose(np.asarray(ke.sum(axis=2)), 0.0, atol=1e-12)
@@ -102,7 +106,7 @@ def test_mass_matrix_total():
 
 def test_lane_assembler_matches_elements_path():
     """Lane-major tetra assembly == element-centric assembly (the
-    TPU-layout path used by the sphere_cut benchmark, ops/lane_assembly)."""
+    cell-last layout used by the sphere_cut benchmark, ops/lane_assembly)."""
     import jax.numpy as jnp
 
     from arcanefem_tpu.mesh.generate import box_tetra_mesh
@@ -125,3 +129,41 @@ def test_lane_assembler_matches_elements_path():
         num_segments=topo.n_slots,
     ).reshape(topo.n_nodes, topo.width))
     np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-6)
+
+
+def _sphere_cut_mesh():
+    from arcanefem_tpu.mesh.unstructured import sphere_cut_tetra_mesh
+
+    return sphere_cut_tetra_mesh(h=14.0)
+
+
+@pytest.mark.parametrize("make_mesh", [
+    partial(box_tetra_mesh, 5, 4, 3),
+    partial(box_tetra_mesh, 3, 3, 3, 0.5, 2.0, 1.0),
+    _sphere_cut_mesh,
+], ids=["box", "box-aniso", "sphere_cut"])
+def test_segsum_assembly_matches_numpy_reference(make_mesh):
+    """The segment-sum (scatter-add) lane assembly, the benchmark's only
+    assembly path, against chip_smoke's independent float64 numpy/scipy
+    assembly at its f32 tolerance."""
+    import jax.numpy as jnp
+
+    from arcanefem_tpu.ops.lane_assembly import TetraLaneAssembler
+    from arcanefem_tpu.sparse.topology import build_topology
+    from chip_smoke import (
+        ASM_TOL, bell_csr, reference_stiffness, row_scaled_error,
+    )
+
+    mesh = make_mesh()
+    topo = build_topology(mesh.n_nodes, mesh.cells)
+    conn = mesh.cells["tetra4"]
+    c32 = mesh.coords.astype(np.float32)
+    got = np.asarray(TetraLaneAssembler(topo, conn)(jnp.asarray(c32)))
+    assert got.dtype == np.float32 and got.shape == (topo.n_nodes, topo.width)
+    # padding slots stay exactly zero
+    assert not got[~np.asarray(topo.ell_valid)].any()
+    ref = reference_stiffness(c32.astype(np.float64), conn)
+    gc = bell_csr(got, topo)
+    assert np.array_equal(gc.indices, ref.indices)
+    assert row_scaled_error(gc, ref) <= ASM_TOL
+

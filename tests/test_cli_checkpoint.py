@@ -6,8 +6,8 @@ from arcanefem_tpu.__main__ import main
 from arcanefem_tpu.fem import checkpoint
 
 
-def test_cli_run_case(capsys):
-    rc = main(["run", "/root/reference/modules/poisson/inputs/circle.2D.arc"])
+def test_cli_run_case(capsys, reference_dir):
+    rc = main(["run", f"{reference_dir}/modules/poisson/inputs/circle.2D.arc"])
     assert rc == 0
     assert "PoissonResult" in capsys.readouterr().out
 

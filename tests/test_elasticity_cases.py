@@ -9,8 +9,9 @@ import glob
 import pytest
 
 from arcanefem_tpu.fem.runner import run_case
+from conftest import REFERENCE
 
-CASES = sorted(glob.glob("/root/reference/modules/elasticity/inputs/*.arc"))
+CASES = sorted(glob.glob(f"{REFERENCE}/modules/elasticity/inputs/*.arc"))
 
 
 @pytest.mark.parametrize("arc", CASES, ids=lambda p: p.split("/")[-1])

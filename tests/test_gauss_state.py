@@ -54,11 +54,11 @@ def test_strain_of_linear_field_is_exact():
     )
 
 
-def test_passmo_still_matches_golden():
+def test_passmo_still_matches_golden(reference_dir):
     """The GaussState rewiring must not change passmo results."""
     from arcanefem_tpu.fem.runner import run_case
 
     res = run_case(
-        "/root/reference/modules/passmo/inputs/bar3d_tetra_hexa_pyramids.arc"
+        f"{reference_dir}/modules/passmo/inputs/bar3d_tetra_hexa_pyramids.arc"
     )
     assert res is not None

@@ -4,12 +4,13 @@ import numpy as np
 import pytest
 
 from arcanefem_tpu.mesh import box_tetra_mesh, read_msh, rect_tria_mesh
+from conftest import REFERENCE
 
-MESHES = sorted(glob.glob("/root/reference/meshes/msh/*.msh"))
+MESHES = sorted(glob.glob(f"{REFERENCE}/meshes/msh/*.msh"))
 
 
-def test_circle_cut():
-    m = read_msh("/root/reference/meshes/msh/circle_cut.msh")
+def test_circle_cut(reference_dir):
+    m = read_msh(f"{reference_dir}/meshes/msh/circle_cut.msh")
     assert m.dim == 2
     assert m.n_nodes == 101
     assert m.cells["tria3"].shape == (166, 3)
@@ -30,8 +31,8 @@ def test_parse_all_reference_meshes(path):
         assert conn.min() >= 0 and conn.max() < m.n_nodes
 
 
-def test_boundary_faces_sphere():
-    m = read_msh("/root/reference/meshes/msh/sphere_cut.msh")
+def test_boundary_faces_sphere(reference_dir):
+    m = read_msh(f"{reference_dir}/meshes/msh/sphere_cut.msh")
     bf = m.boundary_faces()
     # every boundary node should be in some physical face group too
     group_nodes = np.unique(

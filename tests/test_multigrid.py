@@ -45,8 +45,8 @@ import pytest
 @pytest.mark.skipif(
     not os.environ.get("AFEM_SLOW_TESTS"),
     reason="XLA:CPU compiles the V-cycle pathologically slowly (~8 min at "
-    "8^3); run with AFEM_SLOW_TESTS=1. The TPU bench exercises full MG-PCG "
-    "(11 iterations to 1e-8 at 11M DoF).",
+    "8^3); run with AFEM_SLOW_TESTS=1. bench.py and chip_smoke.py exercise "
+    "full MG-PCG on the GPU at 224^3.",
 )
 def test_mg_richardson_contracts():
     """A few M-preconditioned Richardson steps must slash the residual."""

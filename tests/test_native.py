@@ -28,11 +28,11 @@ def test_native_matches_numpy(mesh, pad):
 
 
 @pytest.mark.skipif(library() is None, reason="native library unavailable")
-def test_native_mixed_buckets():
+def test_native_mixed_buckets(reference_dir):
     """Mixed tria+quad mesh (two buckets) through the native path."""
     from arcanefem_tpu.mesh.core import read_msh
 
-    mesh = read_msh("/root/reference/meshes/msh/bar_hybrid_quad_tria.msh")
+    mesh = read_msh(f"{reference_dir}/meshes/msh/bar_hybrid_quad_tria.msh")
     tn = build_topology(mesh.n_nodes, mesh.cells, use_native=True)
     tp = build_topology(mesh.n_nodes, mesh.cells, use_native=False)
     assert tn.nnz == tp.nnz

@@ -8,8 +8,9 @@ import pytest
 
 from arcanefem_tpu.fem.runner import run_case
 from arcanefem_tpu.ops import quadrature as Q
+from conftest import REFERENCE
 
-CASES = sorted(glob.glob("/root/reference/modules/passmo/inputs/*.arc"))
+CASES = sorted(glob.glob(f"{REFERENCE}/modules/passmo/inputs/*.arc"))
 
 
 @pytest.mark.parametrize("arc", CASES, ids=lambda p: p.split("/")[-1])

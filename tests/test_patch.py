@@ -32,8 +32,8 @@ def _patch_poisson(mesh, lin):
     )
 
 
-def test_patch_poisson_2d_unstructured():
-    mesh = read_msh("/root/reference/meshes/msh/circle_cut.msh")
+def test_patch_poisson_2d_unstructured(reference_dir):
+    mesh = read_msh(f"{reference_dir}/meshes/msh/circle_cut.msh")
     _patch_poisson(mesh, lambda c: 0.3 * c[:, 0] - 1.7 * c[:, 1] + 0.5)
 
 

@@ -3,7 +3,7 @@
 The reference's test strategy (SURVEY.md §4): each .arc case runs the
 full module and validates per-node values against check/*.txt with
 relative epsilon 1e-4 (modules/poisson/CMakeLists.txt:44-107).  Here we run
-the *same* case files and golden files through the TPU-native stack.
+the *same* case files and golden files through the JAX stack.
 """
 
 import glob
@@ -11,9 +11,10 @@ import glob
 import pytest
 
 from arcanefem_tpu.fem.runner import run_case
+from conftest import REFERENCE
 
-POISSON_CASES = sorted(glob.glob("/root/reference/modules/poisson/inputs/*.arc"))
-LAPLACE_CASES = sorted(glob.glob("/root/reference/modules/laplace/inputs/*.arc"))
+POISSON_CASES = sorted(glob.glob(f"{REFERENCE}/modules/poisson/inputs/*.arc"))
+LAPLACE_CASES = sorted(glob.glob(f"{REFERENCE}/modules/laplace/inputs/*.arc"))
 
 
 @pytest.mark.parametrize("arc", POISSON_CASES, ids=lambda p: p.split("/")[-1])

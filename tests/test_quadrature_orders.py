@@ -114,7 +114,7 @@ def test_rules_out_of_range():
         rule("tria3", 0)
 
 
-def test_passmo_runs_at_ninteg_3():
+def test_passmo_runs_at_ninteg_3(reference_dir):
     """A reference passmo case re-run with gauss-nint=3 must agree with the
     default order-2 run (P1/P2 straight-sided elements: both rules exact
     for the stiffness; mass differences vanish well under golden epsilon)."""
@@ -124,7 +124,7 @@ def test_passmo_runs_at_ninteg_3():
     from arcanefem_tpu.fem.runner import run_case
     from arcanefem_tpu.models import passmo
 
-    arcs = glob.glob("/root/reference/modules/passmo/inputs/bar2d*.arc")
+    arcs = glob.glob(f"{reference_dir}/modules/passmo/inputs/bar2d*.arc")
     arc = sorted(arcs)[0]
     case = load_case(arc)
     r2 = run_case(arc)

@@ -8,10 +8,11 @@ import numpy as np
 import pytest
 
 from arcanefem_tpu.fem.runner import run_case
+from conftest import REFERENCE
 
 
 def _cases(mod):
-    return sorted(glob.glob(f"/root/reference/modules/{mod}/inputs/*.arc"))
+    return sorted(glob.glob(f"{REFERENCE}/modules/{mod}/inputs/*.arc"))
 
 
 def _run(arc):
@@ -53,7 +54,7 @@ def test_bilaplacian(arc):
     assert np.all(np.isfinite(r.u1)) and np.all(np.isfinite(r.u2))
 
 
-def test_bilaplacian_block_structure():
+def test_bilaplacian_block_structure(reference_dir):
     """Assembled mixed system has the [[0,S],[S,M]] block structure: the
     (u1,u1) diagonal block is exactly zero, S blocks symmetric."""
     from arcanefem_tpu.fem.arc import load_case
@@ -61,7 +62,7 @@ def test_bilaplacian_block_structure():
     from arcanefem_tpu.fem.problem import FemProblem
     from arcanefem_tpu.models import bilaplacian as B
 
-    case = load_case("/root/reference/modules/bilaplacian/inputs/internal_pcg.arc")
+    case = load_case(f"{reference_dir}/modules/bilaplacian/inputs/internal_pcg.arc")
     mesh = read_msh(case.mesh_file)
     prob = FemProblem(mesh, ndof=2, dtype=np.float64)
     A = prob.assemble_matrix(B.element_blocks)

@@ -7,8 +7,9 @@ import numpy as np
 import pytest
 
 from arcanefem_tpu.fem.runner import run_case
+from conftest import REFERENCE
 
-CASES = sorted(glob.glob("/root/reference/modules/soildynamics/inputs/*.arc"))
+CASES = sorted(glob.glob(f"{REFERENCE}/modules/soildynamics/inputs/*.arc"))
 
 
 @pytest.mark.parametrize("arc", CASES, ids=lambda p: p.split("/")[-1])
@@ -20,7 +21,7 @@ def test_soildynamics_case(arc):
     assert np.all(np.isfinite(r.u))
 
 
-def test_paraxial_absorbs_energy():
+def test_paraxial_absorbs_energy(reference_dir):
     """With paraxial boundaries on all sides, the oscillating double-couple
     source radiates waves that leave the domain: the displacement field at
     late times must be far below its early peak (without absorption the
@@ -30,7 +31,7 @@ def test_paraxial_absorbs_energy():
     from arcanefem_tpu.models import soildynamics as SD
 
     case = load_case(
-        "/root/reference/modules/soildynamics/inputs/double-couple.paraxial.arc"
+        f"{reference_dir}/modules/soildynamics/inputs/double-couple.paraxial.arc"
     )
     mesh = read_msh(case.mesh_file)
     case.fem.find("tmax").text = "0.5"

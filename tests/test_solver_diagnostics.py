@@ -3,7 +3,7 @@
 The reference's Aleph backend dumps the matrix to SolveErrorAlephMatrix.dbg
 when a solve fails with stop_error_strategy (AlephDoFLinearSystem.cc:360-362),
 and Hypre's reported convergence measure is relative to ||b||
-(HypreDoFLinearSystemFactory.axl:4-13).  These tests cover the TPU build's
+(HypreDoFLinearSystemFactory.axl:4-13).  These tests cover this build's
 equivalents: info["true_residual"] and SolveErrorMatrix.npz.
 """
 

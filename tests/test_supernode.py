@@ -1,31 +1,12 @@
-"""Supernode-blocked SpMV (sparse/supernode.py): ordering + plan +
-numerics on CPU, kernel parity gated on TPU."""
+"""Supernode node ordering (sparse/supernode.py): a permutation that
+leaves the physics unchanged."""
 
 import numpy as np
-import pytest
 
-import jax
-import jax.numpy as jnp
-
-from arcanefem_tpu.fem.problem import FemProblem
 from arcanefem_tpu.mesh.generate import box_tetra_mesh
-from arcanefem_tpu.ops import elements
-from arcanefem_tpu.sparse.supernode import SupernodeSpmv, supernode_order
+from arcanefem_tpu.sparse.supernode import supernode_order
 from arcanefem_tpu.sparse.topology import build_topology
 from arcanefem_tpu.utils.ordering import renumber_mesh
-
-from test_pallas_spmv import _emulate
-
-
-def _system(nx=9, ny=8, nz=7):
-    mesh = box_tetra_mesh(nx, ny, nz)
-    t0 = build_topology(mesh.n_nodes, mesh.cells)
-    perm = supernode_order(t0, mesh.coords)
-    mesh = renumber_mesh(mesh, perm)
-    topo = build_topology(mesh.n_nodes, mesh.cells, pad_width_to=8)
-    prob = FemProblem(mesh, ndof=1, dtype=np.float32)
-    A = prob.assemble_matrix(lambda ct, xyz: elements.stiffness(ct, xyz))
-    return mesh, A
 
 
 def test_supernode_order_is_permutation():
@@ -50,96 +31,3 @@ def test_order_keeps_solution_invariant():
     perm = supernode_order(t0, mesh.coords)
     r1 = poisson.solve(renumber_mesh(mesh, perm), cfg)
     np.testing.assert_allclose(r0.u[perm], r1.u, rtol=1e-9, atol=1e-12)
-
-
-def test_supernode_emulate_matches_bell():
-    mesh, A = _system()
-    sn = SupernodeSpmv.build(A)
-    assert sn is not None
-    rng = np.random.RandomState(0)
-    x = rng.rand(mesh.n_nodes).astype(np.float32)
-    want = np.asarray(A.spmv(jnp.asarray(x)))
-    got = sn.emulate(x)
-    np.testing.assert_allclose(got, want, rtol=5e-5, atol=1e-5)
-
-
-def test_supernode_plan_faithful():
-    """Emulate the DEVICE pipeline stage by stage through the actual
-    gather plans (the same emulation used for the window SpMV tests)."""
-    mesh, A = _system(7, 6, 5)
-    sn = SupernodeSpmv.build(A)
-    assert sn is not None
-    rng = np.random.RandomState(1)
-    x = rng.rand(mesh.n_nodes).astype(np.float32)
-    bs = sn.blocks.shape[1]
-    xb = np.zeros(sn.n_sup * bs, np.float32)
-    xb[: sn.n] = x
-    xb = xb.reshape(sn.n_sup, bs)
-    xg = np.stack([_emulate(sn.pg_cols, xb[:, r]) for r in range(bs)])
-    yp = np.einsum("eij,je->ei", np.asarray(sn.blocks), xg)
-    yb = np.stack(
-        [_emulate(sn.pg_rows, yp[:, i]) for i in range(bs)], axis=1
-    )
-    got = yb.reshape(-1)[: sn.n]
-    want = np.asarray(A.spmv(jnp.asarray(x)))
-    np.testing.assert_allclose(got, want, rtol=5e-5, atol=1e-5)
-
-
-@pytest.mark.skipif(
-    jax.devices()[0].platform != "tpu", reason="needs real TPU"
-)
-def test_supernode_kernel_matches_bell_on_tpu():
-    mesh, A = _system(14, 12, 10)
-    sn = SupernodeSpmv.build(A)
-    assert sn is not None
-    rng = np.random.RandomState(2)
-    x = jnp.asarray(rng.rand(mesh.n_nodes).astype(np.float32))
-    got = np.asarray(jax.jit(sn.__call__)(x))
-    want = np.asarray(A.spmv(x))
-    np.testing.assert_allclose(got, want, rtol=5e-5, atol=1e-5)
-
-
-def test_supernode_bf16_copy_close():
-    mesh, A = _system(7, 6, 5)
-    sn = SupernodeSpmv.build(A)
-    lo = sn.as_bf16()
-    assert lo.blocks.dtype == jnp.bfloat16
-    rng = np.random.RandomState(3)
-    x = rng.rand(mesh.n_nodes).astype(np.float32)
-    # emulate with bf16-rounded blocks: preconditioner-grade agreement
-    ref = sn.emulate(x)
-    got = lo.emulate(x)
-    rel = np.abs(got - ref).max() / (np.abs(ref).max() or 1.0)
-    assert rel < 2e-2, rel
-
-
-def test_supernode_block_smoother():
-    """Block-Jacobi fine smoother: same solution, <= iterations."""
-    from arcanefem_tpu.fem.bcs import dtype_safe_penalty
-    from arcanefem_tpu.solver.amg import build_amg, with_supernode_smoother
-    from arcanefem_tpu.solver.iterative import pcg
-
-    mesh, A = _system(10, 9, 8)
-    n = mesh.n_nodes
-    bnodes = np.unique(
-        np.concatenate([c.ravel() for c in mesh.boundary_faces().values()])
-    )
-    pen = dtype_safe_penalty(1e30, np.float64)
-    mask = np.zeros(n, bool)
-    mask[bnodes] = True
-    vals = A.flat_values().reshape(-1).astype(jnp.float64)
-    d = jnp.asarray(A.topo.diag_slot)
-    vals = vals.at[d].set(jnp.where(jnp.asarray(mask), pen, vals[d]))
-    A = A.with_values(vals)
-    rhs = jnp.where(jnp.asarray(mask), 0.0, 1.0)
-    x0 = jnp.zeros(n)
-
-    from arcanefem_tpu.sparse.supernode import SupernodeSpmv
-
-    sn = SupernodeSpmv.build(A)
-    M = build_amg(A, use_pallas=False)
-    Mb = with_supernode_smoother(M, A, sn)
-    x, k0, _ = pcg(A, rhs, M, x0, 1e-10, 0.0, 3000)
-    xb, k1, r1 = pcg(A, rhs, Mb, x0, 1e-10, 0.0, 3000)
-    assert int(k1) <= int(k0), (int(k1), int(k0))
-    np.testing.assert_allclose(np.asarray(xb), np.asarray(x), atol=2e-7)

@@ -41,8 +41,8 @@ def test_run_lab_dia_stencil():
     assert stats["formats"]["dia-stencil"]["lhs-matrix-assembly"] > 0
 
 
-def test_cross_validation_mixed_mesh():
-    mesh = read_msh("/root/reference/meshes/msh/bar_hybrid_quad_tria.msh")
+def test_cross_validation_mixed_mesh(reference_dir):
+    mesh = read_msh(f"{reference_dir}/meshes/msh/bar_hybrid_quad_tria.msh")
     report = testlab.cross_validate(mesh)
     assert max(report.values()) < 1e-12
 
@@ -56,7 +56,7 @@ def test_run_lab_stats():
         assert stats["formats"][name]["lhs-matrix-assembly"] > 0
 
 
-def test_golden_through_each_format(tmp_path):
+def test_golden_through_each_format(tmp_path, reference_dir):
     """Each strategy drives the full Poisson pipeline to the same golden
     (the reference's testlab Test.L-shape cases use the poisson goldens)."""
     import jax.numpy as jnp
@@ -65,8 +65,8 @@ def test_golden_through_each_format(tmp_path):
     from arcanefem_tpu.fem.validation import check_node_results
     from arcanefem_tpu.solver.linear_system import SolverOptions
 
-    mesh = read_msh("/root/reference/meshes/msh/circle_cut.msh")
-    golden = "/root/reference/modules/poisson/check/poisson_test_ref_circle_2D.txt"
+    mesh = read_msh(f"{reference_dir}/meshes/msh/circle_cut.msh")
+    golden = f"{reference_dir}/modules/poisson/check/poisson_test_ref_circle_2D.txt"
     for name, fn in testlab.FORMATS.items():
         prob = FemProblem(mesh, ndof=1, dtype=np.float64)
         mats = testlab.element_matrices(mesh, np.float64)
@@ -82,8 +82,9 @@ import glob as _glob
 import pytest as _pytest
 
 from arcanefem_tpu.fem.runner import run_case as _run_case
+from conftest import REFERENCE
 
-_ARC_CASES = sorted(_glob.glob("/root/reference/modules/testlab/inputs/*.arc"))
+_ARC_CASES = sorted(_glob.glob(f"{REFERENCE}/modules/testlab/inputs/*.arc"))
 
 
 @_pytest.mark.parametrize("arc", _ARC_CASES, ids=lambda p: p.split("/")[-1])

@@ -16,11 +16,12 @@ from arcanefem_tpu.fem.bcs import BoundaryConditions, DirichletBC, TractionBC
 from arcanefem_tpu.fem.runner import run_case
 from arcanefem_tpu.mesh.generate import rect_tria_mesh
 from arcanefem_tpu.solver.linear_system import SolverOptions
+from conftest import REFERENCE
 
 
-HEAT_CASES = sorted(glob.glob("/root/reference/modules/heat/inputs/*.arc"))
+HEAT_CASES = sorted(glob.glob(f"{REFERENCE}/modules/heat/inputs/*.arc"))
 ELASTO_CASES = sorted(
-    glob.glob("/root/reference/modules/elastodynamics/inputs/*.arc")
+    glob.glob(f"{REFERENCE}/modules/elastodynamics/inputs/*.arc")
 )
 
 
@@ -124,11 +125,11 @@ def test_generalized_alpha_bounded():
     assert np.abs(r.u).max() < 1.0
 
 
-def test_case_table_interpolation():
+def test_case_table_interpolation(reference_dir):
     from arcanefem_tpu.fem.casetable import read_case_table
 
     t = read_case_table(
-        "/root/reference/modules/elastodynamics/data/traction_bar_test_1.txt", 3
+        f"{reference_dir}/modules/elastodynamics/data/traction_bar_test_1.txt", 3
     )
     v0 = np.asarray(t.value(float(t.times[0])))
     np.testing.assert_allclose(v0, t.values[0], rtol=1e-12)

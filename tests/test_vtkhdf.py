@@ -87,10 +87,10 @@ def test_temporal_steps(tmp_path):
         )
 
 
-def test_run_case_output_dir(tmp_path):
+def test_run_case_output_dir(tmp_path, reference_dir):
     from arcanefem_tpu.fem.runner import run_case
 
-    case = "/root/reference/modules/poisson/inputs/circle.2D.arc"
+    case = f"{reference_dir}/modules/poisson/inputs/circle.2D.arc"
     res = run_case(case, output_dir=str(tmp_path))
     out = tmp_path / "circle.2D.hdf"
     assert out.exists()
@@ -100,11 +100,11 @@ def test_run_case_output_dir(tmp_path):
         np.testing.assert_allclose(u, res.u)
 
 
-def test_run_case_transient_history(tmp_path):
+def test_run_case_transient_history(tmp_path, reference_dir):
     """heat + keep_history -> ONE temporal VTKHDF holding every step."""
     from arcanefem_tpu.fem.runner import run_case
 
-    case = "/root/reference/modules/heat/inputs/conduction.arc"
+    case = f"{reference_dir}/modules/heat/inputs/conduction.arc"
     res = run_case(case, output_dir=str(tmp_path), keep_history=True)
     assert res.history
     with _open(str(tmp_path / "conduction.hdf")) as f:

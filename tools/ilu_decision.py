@@ -10,11 +10,11 @@ platform-independent):
   1. PCG iterations to rtol 1e-8 with jacobi / chebyshev(3) / ILU (scipy
      spilu at fill_factor=1 ~ ILU(0), and a stronger ILUT) on three
      repo-assembled systems (2D poisson, 3D poisson, 2D elasticity).
-  2. The TPU cost model for a triangular solve: the level-schedule depth
-     of L (longest dependency chain).  Each level is a separate
-     dependent device step; at the ~10-50 us/step dispatch floor the
+  2. The device cost model for a triangular solve: the level-schedule
+     depth of L (longest dependency chain).  Each level is a separate
+     dependent device step; at the ~10-50 us/step kernel-launch floor the
      solve latency is depth-bound regardless of flops, while cheb(3)
-     costs exactly 3 window-kernel SpMVs.
+     costs exactly 3 SpMVs.
 
 Writes .cache/queue_results/ilu_decision.json and prints a summary.
 """
@@ -26,10 +26,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax  # noqa: E402
+from arcanefem_tpu.utils import device  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_enable_x64", True)
+device.setup(cpu=True, x64=True)
 
 import scipy.sparse as sp  # noqa: E402
 import scipy.sparse.linalg as spla  # noqa: E402
@@ -163,7 +162,7 @@ def ic0(A):
 
 def level_depth(L):
     """Longest dependency chain of a lower-triangular solve (the number
-    of sequential device steps a level-scheduled TPU solve needs)."""
+    of sequential device steps a level-scheduled device solve needs)."""
     L = L.tocsr()
     n = L.shape[0]
     lvl = np.zeros(n, np.int64)

@@ -1,9 +1,9 @@
-"""Prime the HOST-side bench caches (mesh, sn reorder, topology) for a
-given size WITHOUT touching the TPU — so the long pole of a first big-run
-(8.9M: ~15 min of mesh+reorder+topology) happens off the measurement
-path.  The TPU-platform caches (assembler plan pickles, AMG hierarchy)
-still build on the first bench run; those are minutes with the native
-planner + values_np setup.
+"""Prime the tools' sphere_cut mesh cache (utils/cache.py) for one size.
+
+Builds the mesh, node order and topology of problems.sphere_cut_mesh on
+the host and stores them, so conv_tune.py, profile_unstr.py and
+profile_amg_setup.py start from the cached system.  bench.py and
+chip_smoke.py do not read this cache.
 
 Usage: python tools/prime_mesh_caches.py [h] [refine]   (default 6 3)
 """
@@ -11,43 +11,19 @@ import os
 import sys
 import time
 
-import numpy as np
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
-    import bench
-    from arcanefem_tpu.sparse.supernode import supernode_order
-    from arcanefem_tpu.utils.cache import CACHE_DIR
-    from arcanefem_tpu.utils.ordering import renumber_mesh
+    from arcanefem_tpu.utils.cache import sphere_cut_cached
 
     h = float(sys.argv[1]) if len(sys.argv) > 1 else 6.0
     refine = int(sys.argv[2]) if len(sys.argv) > 2 else 3
-
     t0 = time.time()
-    mesh = bench._load_sphere_cut(h, refine)
-    print(f"mesh {mesh.n_nodes:,} nodes ({time.time()-t0:.0f}s)",
+    mesh, topo = sphere_cut_cached(h, refine)
+    print(f"sphere_cut h={h:g} refine={refine}: {mesh.n_nodes:,} nodes, "
+          f"W={topo.width}, nnz={topo.nnz:,} ({time.time() - t0:.0f}s)",
           flush=True)
-    key = f"sphere_cut_v3_h{h:g}_r{refine}"
-    snpath = os.path.join(CACHE_DIR, key + "_snmesh.npz")
-    if not os.path.exists(snpath):
-        t0 = time.time()
-        topo_rcm = bench._load_topology(mesh, key)
-        mesh = renumber_mesh(mesh, supernode_order(topo_rcm, mesh.coords))
-        np.savez(snpath, coords=mesh.coords, uids=mesh.node_uids,
-                 tets=mesh.cells["tetra4"],
-                 cut=mesh.face_groups["Cut"]["tria3"],
-                 sphere=mesh.face_groups["sphere"]["tria3"])
-        print(f"sn reorder ({time.time()-t0:.0f}s)", flush=True)
-    t0 = time.time()
-    topo = bench._load_topology(mesh, key + "_sn")
-    print(f"topology W={topo.width} nnz={topo.nnz:,} "
-          f"({time.time()-t0:.0f}s)", flush=True)
 
 
 if __name__ == "__main__":
